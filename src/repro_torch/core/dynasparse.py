@@ -21,6 +21,10 @@ Routes of the block path:
   product runs as one ``gemm`` launch or one ``spdmm`` launch over the
   Block-CSR lhs (16x16 tiles).  Their code grids are still returned.
 
+Operands are float32 or bfloat16 (the LM's FFN); the block path
+accumulates in float32 and the result takes ``promote_types(x, y)``, as
+in the reference.  The static routes' kernels take float32 only.
+
 The planner bypasses (``codes``, ``dens_x``/``dens_y``, ``fmt``, ``ell``)
 keep the reference's meaning: the fused whole-model executor plans from
 propagated writeback profiles and shares one ELL view across kernels.

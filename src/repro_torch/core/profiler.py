@@ -15,11 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-def _pad2(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
-    m, n = x.shape
-    pm, pn = (-m) % bm, (-n) % bn
-    return F.pad(x, (0, pn, 0, pm)) if (pm or pn) else x
+from repro_torch.kernels.profile import tile_nnz
 
 
 def element_density(x: torch.Tensor) -> torch.Tensor:
@@ -40,12 +36,10 @@ def density_from_counts(counts: torch.Tensor, m: int, n: int,
 
 
 def block_counts(x: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:
-    """Per-block NONZERO COUNTS.  (M, N) -> (Mb, Nb) int32."""
-    bm, bn = block
-    xp = _pad2(x, bm, bn)
-    mb, nb = xp.shape[0] // bm, xp.shape[1] // bn
-    nz = (xp != 0).reshape(mb, bm, nb, bn)
-    return nz.sum(dim=(1, 3), dtype=torch.int32)
+    """Per-block NONZERO COUNTS.  (M, N) -> (Mb, Nb) int32, through the
+    profiler kernel (``kernels/profile.py``) on a CUDA tensor and its plain
+    version on the CPU."""
+    return tile_nnz(x, tuple(block))
 
 
 def block_density(x: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:

@@ -1,16 +1,19 @@
 """Hand-written CUDA kernels for the Dynasparse computation primitives.
 
-``gemm``, ``spdmm``, ``spmm`` and ``csr_spmm`` port the Pallas kernels of
-``repro.kernels``; ``dispatch`` is the executor's one-launch block path.
-Each module holds its kernel's wrapper, its plain PyTorch version and its
-launch counter (``<module>.launches``); ``ops`` holds the padding and
-format wrappers, ``build`` compiles ``csrc/`` with ``nvcc`` at first use.
+``gemm``, ``spdmm``, ``spmm``, ``csr_spmm``, ``profile`` (``tile_nnz``)
+and ``flash_attention`` port the Pallas kernels of ``repro.kernels``;
+``dispatch`` is the executor's one-launch block path.  Each module holds
+its kernel's wrapper, its plain PyTorch version and its launch counter
+(``<module>.launches``); ``ops`` holds the padding and format wrappers,
+``build`` compiles ``csrc/`` with ``nvcc`` at first use.
 """
-from repro_torch.kernels import (csr_spmm, dispatch, gemm, ops,  # noqa: F401
-                                 spdmm, spmm)
+from repro_torch.kernels import (csr_spmm, dispatch,  # noqa: F401
+                                 flash_attention, gemm, ops, profile, spdmm,
+                                 spmm)
 
 KERNEL_MODULES = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm,
-                  "csr_spmm": csr_spmm, "dispatch": dispatch}
+                  "csr_spmm": csr_spmm, "dispatch": dispatch,
+                  "tile_nnz": profile, "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict:

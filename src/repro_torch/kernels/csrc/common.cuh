@@ -1,6 +1,6 @@
 // Shared building blocks of the port's Hopper kernels (sm_90a).
 //
-// Every kernel here works on 16x16 float32 sub-tiles with a 16x16 thread
+// The matmul kernels work on 16x16 float32 sub-tiles with a 16x16 thread
 // block: thread (ty, tx) owns element (ty, tx) of each output sub-tile it
 // computes.  A sub-tile product stages both operands in shared memory and
 // accumulates with one fused multiply-add per reduction element, in
@@ -14,6 +14,7 @@
 // on a refused launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,15 +28,28 @@ constexpr int GEMM = 1;
 constexpr int SPDMM = 2;
 constexpr int SPMM = 3;
 
+// Element types a kernel reads, widened to float32 for the arithmetic.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Store a float32 result as the output's element type (round to nearest).
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
 // Copy one 16x16 tile of g (row stride ld elements) to rows
-// [row0, row0 + 16) and columns [col0, col0 + 16) of s; one element per
-// thread, neighbouring tx on neighbouring addresses.
-template <int W>
+// [row0, row0 + 16) and columns [col0, col0 + 16) of s, widened to
+// float32; one element per thread, neighbouring tx on neighbouring
+// addresses.
+template <int W, typename E>
 __device__ __forceinline__ void load_tile(float (*s)[W], int row0, int col0,
-                                          const float* __restrict__ g,
+                                          const E* __restrict__ g,
                                           long ld) {
   s[row0 + threadIdx.y][col0 + threadIdx.x] =
-      g[(long)threadIdx.y * ld + threadIdx.x];
+      to_f32(g[(long)threadIdx.y * ld + threadIdx.x]);
 }
 
 // p += row (row0 + ty) of a times column (col0 + tx) of b over 16 k.

@@ -5,8 +5,11 @@ The reference dispatches every (i, j, k) reduction step with a
 with kernels on, each non-SKIP step is its own Pallas call.  The port runs
 the whole grid as one CUDA launch (``csrc/dispatch.cu``): one CTA per
 output block, the k loop in order, each step's primitive read from
-``codes`` on the device.  :func:`block_matmul_plain` is the plain PyTorch
-version with the same per-step accumulation (``acc + step``).
+``codes`` on the device.  Blocks of 128 or 256 rows or columns run as
+64 x 64 CTAs that share their block's code.  Operands are float32 or
+bfloat16; the product accumulates in float32.  :func:`block_matmul_plain`
+is the plain PyTorch version with the same per-step accumulation
+(``acc + step``).
 """
 from __future__ import annotations
 
@@ -17,10 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.profile import tile_nnz
 
 launches = 0
 TILE = 16
-BLOCK_EDGES = (16, 32, 64)
+BLOCK_EDGES = (16, 32, 64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -31,11 +36,18 @@ def pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def tile_occupancy(x: torch.Tensor) -> torch.Tensor:
-    """(M, N) with M, N multiples of 16 -> (M/16, N/16) uint8 nonzero-tile
-    flags."""
+    """(M, N) -> (ceil(M/16), ceil(N/16)) uint8 nonzero-tile flags, from
+    the profiler kernel's 16x16 counts."""
+    return (tile_nnz(x, (TILE, TILE)) > 0).to(torch.uint8)
+
+
+def _pad_grid(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``x`` zero-padded to exactly ``rows`` x ``cols``, contiguous; no copy
+    when it already is."""
     m, n = x.shape
-    nz = (x != 0).reshape(m // TILE, TILE, n // TILE, TILE)
-    return nz.any(dim=3).any(dim=1).to(torch.uint8)
+    if (m, n) != (rows, cols):
+        x = F.pad(x, (0, cols - n, 0, rows - m))
+    return x.contiguous()
 
 
 def _shapes(x, y, codes, block):
@@ -92,8 +104,8 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
     product (written into ``out`` when given).  When the device flag
     ``skip`` is nonzero nothing is written.
 
-    On CUDA: float32 operands, ``bm`` and ``bn`` in (16, 32, 64) and ``bk``
-    a multiple of 16.
+    On CUDA: float32 or bfloat16 operands of one type, ``bm`` and ``bn`` in
+    ``BLOCK_EDGES`` and ``bk`` a multiple of 16.
     """
     if not y.is_cuda:
         return block_matmul_plain(x, y, codes, block, out=out, skip=skip)
@@ -102,11 +114,13 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
     if bm not in BLOCK_EDGES or bn not in BLOCK_EDGES or bk % TILE:
         raise ValueError(f"block_matmul: block {block} not supported by the "
                          f"kernel (bm, bn in {BLOCK_EDGES}, bk % 16 == 0)")
-    xp = F.pad(x, (0, K * bk - x.shape[1], 0, I * bm - x.shape[0]))
-    yp = F.pad(y, (0, J * bn - y.shape[1], 0, K * bk - y.shape[0]))
-    xp, yp = xp.contiguous(), yp.contiguous()
-    build.require("block_matmul x", xp, torch.float32)
-    build.require("block_matmul y", yp, torch.float32)
+    if x.dtype != y.dtype or y.dtype not in DTYPES:
+        raise ValueError(f"block_matmul: operands {x.dtype} x {y.dtype} must "
+                         "both be float32 or both bfloat16")
+    xp = _pad_grid(x, I * bm, K * bk)
+    yp = _pad_grid(y, K * bk, J * bn)
+    build.require("block_matmul x", xp, y.dtype)
+    build.require("block_matmul y", yp, y.dtype)
     build.require("block_matmul codes", codes, torch.int32)
     if skip is not None:
         build.require("block_matmul skip", skip, torch.int32)
@@ -116,9 +130,11 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
         return out
     occ_x = tile_occupancy(xp)
     occ_y = tile_occupancy(yp)
-    fn = build.function("dispatch", "rt_dispatch", [ctypes.c_void_p] * 7
+    fn = build.function("dispatch", "rt_dispatch", [ctypes.c_void_p] * 2
+                        + [ctypes.c_int] + [ctypes.c_void_p] * 5
                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    build.check(fn(xp.data_ptr(), yp.data_ptr(), codes.data_ptr(),
+    build.check(fn(xp.data_ptr(), yp.data_ptr(), DTYPES[y.dtype],
+                   codes.data_ptr(),
                    occ_x.data_ptr(), occ_y.data_ptr(), out.data_ptr(),
                    None if skip is None else skip.data_ptr(),
                    I, J, K, bm, bk, bn, build.stream(y)), "dispatch")

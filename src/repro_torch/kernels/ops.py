@@ -2,8 +2,8 @@
 
 These own everything the kernels don't: padding to tile multiples,
 operand-order normalization (the ``sparse_rhs`` transpose), format
-conversion (dense -> Block-CSR / Block-CSC / ELL), and dispatch from a
-``Primitive`` code.  A CUDA tensor runs the CUDA kernels, a CPU tensor
+conversion (dense -> Block-CSR / Block-CSC / ELL), dispatch from a
+``Primitive`` code, and attention's GQA check and front padding.  A CUDA tensor runs the CUDA kernels, a CPU tensor
 their plain versions.
 """
 from __future__ import annotations
@@ -11,10 +11,12 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import formats
 from repro_torch.core.perf_model import Primitive
 from repro_torch.kernels import csr_spmm as _csr
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import spdmm as _spdmm
 from repro_torch.kernels import spmm as _spmm
@@ -80,3 +82,30 @@ def matmul(x: torch.Tensor, y: torch.Tensor, primitive: Primitive, *,
     if primitive == Primitive.SPMM:
         return spmm(x, y, tile=tile)
     raise ValueError(f"unknown primitive {primitive}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """(B, H, Sq, D) x (B, Hkv, Skv, D): front-pads the sequence dims to
+    ``min(bq, Sq)`` / ``min(bk, Skv)`` multiples, as the reference does
+    (``repro/kernels/ops.py:129-153``).  GQA kv heads are mapped inside the
+    kernel (the value equals the reference's ``jnp.repeat``)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"flash_attention: {h} query heads are not a "
+                         f"multiple of {hkv} kv heads")
+    bq, bk = min(bq, max(sq, 1)), min(bk, max(skv, 1))
+    pq, pk = (-sq) % bq, (-skv) % bk
+    if pk and not causal:
+        raise ValueError("non-causal flash requires Skv % bk == 0")
+    if pq or pk:
+        # FRONT-pad both so the causal "queries at the end of the kv
+        # sequence" alignment holds for the real rows.  The padded keys
+        # stay visible to the real queries (as in the reference).
+        q = F.pad(q, (0, 0, pq, 0))
+        k = F.pad(k, (0, 0, pk, 0))
+        v = F.pad(v, (0, 0, pk, 0))
+    out = _flash.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+    return out[:, :, pq:, :]

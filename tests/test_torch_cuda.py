@@ -51,4 +51,85 @@ def test_cuda_kernels_match_plain(cuda, density):
         torch.testing.assert_close(
             dispatch.block_matmul(x, y, codes, block),
             dispatch.block_matmul_plain(x, y, codes, block), **TOL)
-    assert all(v >= 1 for v in K.launch_counts().values())
+    launched = K.launch_counts()
+    assert all(launched[name] >= 1 for name in (
+        "gemm", "spdmm", "spmm", "csr_spmm", "dispatch", "tile_nnz"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_nnz_kernel_is_exact(cuda, dtype):
+    x = sparse(10, 700, 1500, 0.05, cuda).to(dtype)
+    K.reset_launch_counts()
+    for tile in ((16, 16), (64, 16), (256, 256), (48, 80), (1, 300),
+                 (700, 1500)):
+        got = K.profile.tile_nnz(x, tile)
+        assert torch.equal(got, K.profile.tile_nnz_plain(x, tile)), tile
+        strided = x[3:650, 5:1400]
+        assert torch.equal(K.profile.tile_nnz(strided, tile),
+                           K.profile.tile_nnz_plain(strided, tile)), tile
+    assert int(K.profile.tile_nnz(x, (64, 16)).sum()) == int(
+        torch.count_nonzero(x))
+    assert K.launch_counts()["tile_nnz"] == 13
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,sq,skv,bq,bk", [
+    (True, 128, 128, 128, 128), (True, 40, 40, 16, 16),
+    (False, 64, 128, 64, 128), (True, 80, 48, 16, 16),
+    (True, 48, 40, 16, 8), (True, 300, 300, 128, 128)])
+def test_flash_attention_kernel_matches_plain(cuda, d, causal, sq, skv, bq,
+                                              bk):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d + sq)
+    q = torch.randn((2, 8, sq, d), generator=g, device=cuda)
+    k = torch.randn((2, 2, skv, d), generator=g, device=cuda)
+    v = torch.randn((2, 2, skv, d), generator=g, device=cuda)
+    kw = dict(causal=causal, bq=bq, bk=bk)
+    K.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    bf = ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw)
+    torch.testing.assert_close(
+        bf.float().cpu(), ops.flash_attention(
+            q.bfloat16().cpu(), k.bfloat16().cpu(), v.bfloat16().cpu(),
+            **kw).float(), atol=1e-2, rtol=1e-2)
+    assert K.launch_counts()["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("block", [(256, 256, 256), (128, 64, 256),
+                                   (256, 32, 32), (64, 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_large_blocks_and_bf16(cuda, block, dtype):
+    x = sparse(11, 300, 520, 0.3, cuda).to(dtype)
+    y = sparse(12, 520, 600, 0.1, cuda).to(dtype)
+    shape = (-(-300 // block[0]), -(-600 // block[2]), -(-520 // block[1]))
+    codes = torch.randint(0, 4, shape, dtype=torch.int32, device=cuda)
+    tol = TOL if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(
+        dispatch.block_matmul(x, y, codes, block),
+        dispatch.block_matmul_plain(x, y, codes, block), **tol)
+
+
+def test_lm_smoke_dynasparse_serving_equals_dense(cuda):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import prune_ffn
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = smoke_config("llama3.2-1b", n_layers=2)
+    dense = model_zoo.build(cfg)
+    params = prune_ffn(dense.init_params(0), 0.1)
+    sparse_b = model_zoo.build(dataclasses.replace(cfg, dynasparse_ffn=True))
+    rng = np.random.default_rng(2)
+    reqs = [Request(rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
+                    max_new_tokens=4, request_id=i) for i in range(2)]
+    K.reset_launch_counts()
+    r_ds = ServeEngine(sparse_b, params, slots=2, max_seq=16).generate(reqs)
+    assert K.launch_counts()["dispatch"] > 0
+    assert K.launch_counts()["tile_nnz"] > 0
+    r_dense = ServeEngine(dense, params, slots=2, max_seq=16).generate(reqs)
+    for a, b in zip(r_ds, r_dense):
+        np.testing.assert_array_equal(a.tokens, b.tokens)

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,3 +76,40 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         ops.matmul(x, y, p, tile=(16, 16))
     ops.csr_spmm(x, y, rmax=24)
     assert all(v == 0 for v in K.launch_counts().values())
+
+
+def test_lm_entry_points_need_cuda_unless_cpu_is_asked_for():
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    cfg = smoke_config("llama3.2-1b", n_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_zoo.build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_zoo.params_from_reference({}, cfg)
+    bundle = model_zoo.build(cfg, device="cpu")
+    params = bundle.init_params(0)
+    assert params["embed"].device.type == "cpu"
+    out = ServeEngine(bundle, params, slots=1, max_seq=8).generate(
+        [Request(np.arange(3, dtype=np.int32), max_new_tokens=2)])
+    assert len(out[0].tokens) == 2
+
+
+def test_lm_kernels_on_cpu_tensors_take_the_plain_versions():
+    import repro_torch.kernels as K
+    from repro_torch.core import profiler
+    from repro_torch.kernels import dispatch, ops
+
+    K.reset_launch_counts()
+    x = torch.randn(40, 24, dtype=torch.bfloat16)
+    assert profiler.block_counts(x, (16, 16)).tolist() == [[256, 128]] * 2 \
+        + [[128, 64]]
+    assert dispatch.tile_occupancy(x).dtype == torch.uint8
+    q = torch.randn(1, 4, 8, 16)
+    kv = torch.randn(1, 2, 8, 16)
+    assert ops.flash_attention(q, kv, kv, causal=True).shape == q.shape
+    assert all(v == 0 for v in K.launch_counts().values())
+    assert {"tile_nnz", "flash_attention"} <= set(K.launch_counts())
