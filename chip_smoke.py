@@ -19,6 +19,13 @@ card at the shapes its path gives it, then drives the port's paths:
   256)) and once dense; then the smoke config's dynasparse == dense
   tokens and decode == full-forward logits on the card.
 
+bf16 operands run on the tensor-core routes of ``dispatch`` and
+``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes; each
+``kernel`` record names its route (``mma``, ``fma``, or ``simt`` for the
+integer ``tile_nnz``).  The bf16 ``dispatch`` is timed on both FFN
+products (w1: 2048 -> 8192, w2: 8192 -> 2048) at prefill and decode
+shapes and checked at decode row counts 1, 4, 17 and 300.
+
 Times come from CUDA events (kernels) and the host clock around
 synchronised work (paths).  Each path resets the kernels' launch counters
 just before it runs and reads them just after; a kernel of a path that
@@ -46,8 +53,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 3e-4            # kernel vs plain version (tests/test_kernels.py:39)
 BF16_TOL = 5e-2       # bf16 kernel vs plain version (ROADMAP slice rule)
-FLASH_TOL = 1e-2      # bf16 flash vs plain: outputs are ~0.05 typical, ~1
-                      # at most; a bf16 rounding step is 2e-3 at 0.25-0.5
+DISPATCH_BF16_TOL = 1e-4   # bf16 dispatch vs plain: both sum the same
+                      # exact bf16 products in float32 (max|err| measured on
+                      # an H100: 1.7e-6), so one stale 32-wide k slice of a
+                      # tile (~1e-2) fails
+FLASH_TOL = 1e-2      # bf16 flash vs plain: outputs are ~0.05 typical, 3.7
+                      # at most; max|err| is one bf16 step at the largest
+                      # (1.6e-2 at |want| in [2, 4), inside atol + rtol|want|)
 MODEL_TOL = 2e-4      # engine outputs (tests/test_unified_executor.py:90)
 LM_REL = 3e-2         # LM outputs, relative (tests/test_models_smoke.py:85)
 LOSS_TOL = 1e-2       # flash vs chunked scoring loss
@@ -157,7 +169,8 @@ def main() -> int:
         return err, close(got, want.to(got.device), tol)
 
     def kernel_entry(name, source, replaces, fn, plain, lib, work, ok_err,
-                     tol=TOL, peak=PEAK_FP32, line=True):
+                     tol=TOL, peak=PEAK_FP32, line=True, units="fma",
+                     line_name=None):
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -167,15 +180,27 @@ def main() -> int:
               f"(max|err|={err}, tol={tol})")
         flops, nbytes = work
         b_ms, b_by = bound(flops, nbytes, peak)
-        entry = {"name": name, "route": "cuda", "source": source,
+        entry = {"name": name, "route": "cuda", "units": units,
+                 "source": source,
                  "replaces": replaces, "launches": 0, "max_abs_err": err,
                  "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": None if lib is None else cuda_ms(torch, lib)}
-        if line:
-            kernels_line[name] = entry
-        record("kernel", **entry, flops=flops, bytes=nbytes, tol=tol,
-               in_kernels_line=line)
+        if line:      # under line_name, with the case it was timed on
+            kernels_line[line_name or name] = (
+                {**entry, "name": line_name, "timed_on": name}
+                if line_name else entry)
+        # device time of everything the wrapper launches, per call: at
+        # small shapes the event time above is the host's (its torch ops
+        # and launches), not the card's
+        dev = profile_device(torch, fn, n=5)
+        # the record's route names the compute units (tensor-core mma, FP32
+        # fma, or simt for integer work); the kernels line's route is the
+        # language
+        record("kernel", **{**entry, "route": units},
+               device_ms=dev["device_busy_ms"],
+               device_ops=dev["top_device_ops"][:4],
+               flops=flops, bytes=nbytes, tol=tol, in_kernels_line=line)
 
     def small_checks(name, fn_pairs, tol=TOL):
         for label, fn, plain in fn_pairs:
@@ -470,7 +495,8 @@ def main() -> int:
     kernels_line["tile_nnz"]["launches"] = lm_counts["serve"]["tile_nnz"]
     kernels_line["flash_attention"]["launches"] = \
         lm_counts["score"]["flash_attention"]
-    check(len(kernels_line) == len(K.KERNEL_MODULES)
+    kernels_line[LM_DISPATCH]["launches"] = lm_counts["serve"]["dispatch"]
+    check(set(K.KERNEL_MODULES) | {LM_DISPATCH} == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
     out_dir = ROOT / "chiprun_out"
@@ -488,6 +514,11 @@ LM_ARCH = "llama3.2-1b"
 SCORE_BATCH, SCORE_SEQ = 2, 2048
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 128, 16
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_DENSITY = 4, 144, 0.1
+# the bf16 (tensor-core) dispatch kernel's entry in the kernels line: its
+# launches are every dispatch launch of the serving path (prefill and
+# decode; w1, w2 and w3), its times those of the most frequent call, a
+# decode step's FFN w1 product
+LM_DISPATCH = "dispatch (bf16, tensor cores)"
 
 
 def leaves(tree):
@@ -558,7 +589,7 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
         "src/repro/kernels/profile.py:25",
         lambda: K.profile.tile_nnz(w1, (256, 256)),
         lambda: K.profile.tile_nnz_plain(w1, (256, 256)), None,
-        nnz_work(w1, (256, 256)), lambda g, w: True)
+        nnz_work(w1, (256, 256)), lambda g, w: True, units="simt")
     ragged = A[:1000, :777].to(torch.bfloat16)
     small_checks("tile_nnz", [
         ("A_mean 3327x3327 f32 at (64, 16)",
@@ -610,7 +641,7 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
               2.0 * (2 * q.numel() + k.numel() + v.numel())),
         lambda g, w: float((g.float() - w.float()).abs().max())
         < FLASH_TOL * float(w.float().abs().max()),
-        tol=FLASH_TOL, peak=PEAK_BF16)
+        tol=FLASH_TOL, peak=PEAK_BF16, units="mma")
     want = K.flash_attention.flash_attention_plain(
         q, k, v, causal=True, bq=min(128, SCORE_SEQ),
         bk=min(128, SCORE_SEQ)).float().abs()
@@ -621,26 +652,30 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
     record("flash_vs_library",
            max_abs_err=float((ops.flash_attention(q, k, v, causal=True)
                               .float() - lib().float()).abs().max()))
-    cases = []
-    for label, shape, causal, bq, bk in (
-            ("S=40 front-padded, causal, GQA 4/2, D=64",
-             (2, 4, 2, 40, 40, 64), True, 16, 16),
-            ("non-causal, Sq=64 != Skv=128, D=32",
-             (1, 4, 4, 64, 128, 32), False, 128, 128),
-            ("causal, Sq=80 > Skv=48 (rows with no key), D=16",
-             (1, 2, 1, 80, 48, 16), True, 16, 16),
-            ("causal, Sq=48 > Skv=40, bk=8 (rows averaging masked keys)",
-             (1, 2, 2, 48, 40, 32), True, 16, 8),
-            ("causal, D=128, GQA 8/2", (1, 8, 2, 96, 96, 128), True, 32, 32)):
-        qs, ks, vs = qkv(*shape, torch.float32)
-        kw = dict(causal=causal, bq=bq, bk=bk)
-        cases.append((label,
-                      lambda qs=qs, ks=ks, vs=vs, kw=kw:
-                      ops.flash_attention(qs, ks, vs, **kw),
-                      lambda qs=qs, ks=ks, vs=vs, kw=kw:
-                      ops.flash_attention(qs.cpu(), ks.cpu(), vs.cpu(),
-                                          **kw)))
-    small_checks("flash_attention", cases)
+    # the reference's edge semantics, on the float32 (FMA) route at 3e-4
+    # and on the bf16 (tensor-core) route at the bf16 tolerance
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+        cases = []
+        for label, shape, causal, bq, bk in (
+                ("S=40 front-padded, causal, GQA 4/2, D=64",
+                 (2, 4, 2, 40, 40, 64), True, 16, 16),
+                ("non-causal, Sq=64 != Skv=128, D=32",
+                 (1, 4, 4, 64, 128, 32), False, 128, 128),
+                ("causal, Sq=80 > Skv=48 (rows with no key), D=16",
+                 (1, 2, 1, 80, 48, 16), True, 16, 16),
+                ("causal, Sq=48 > Skv=40, bk=8 (rows averaging masked keys)",
+                 (1, 2, 2, 48, 40, 32), True, 16, 8),
+                ("causal, D=128, GQA 8/2", (1, 8, 2, 96, 96, 128), True, 32,
+                 32)):
+            qs, ks, vs = qkv(*shape, dtype)
+            kw = dict(causal=causal, bq=bq, bk=bk)
+            cases.append((f"{label}, {str(dtype)[6:]}",
+                          lambda qs=qs, ks=ks, vs=vs, kw=kw:
+                          ops.flash_attention(qs, ks, vs, **kw),
+                          lambda qs=qs, ks=ks, vs=vs, kw=kw:
+                          ops.flash_attention(qs.cpu(), ks.cpu(), vs.cpu(),
+                                              **kw)))
+        small_checks("flash_attention", cases, tol=tol)
 
     # dispatch (bf16, (256, 256, 256)) on a prefill wave's activations and
     # a pruned FFN weight, with the planner's own codes
@@ -652,25 +687,37 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
     x = layers.rmsnorm(params["embed"][wave0].reshape(-1, cfg.d_model),
                        pruned["layers"][0]["ln2"]["scale"])
     blk = layers.FFN_BLOCK
-    for label, xs in (("prefill", x), ("decode", x[:SERVE_SLOTS])):
+    # w2's input is the FFN hidden state of the same rows (d_ff wide)
+    w3 = pruned["layers"][0]["ffn"]["w3"]
+    hid = F.silu(x @ w1) * (x @ w3)
+    # (called as the FFN calls it, for x's rows only: pad_rows=False)
+    for label, xs, w, suffix in (
+            ("prefill", x, w1, ""), ("decode", x[:SERVE_SLOTS], w1, ""),
+            ("prefill", hid, w2, ", w2"),
+            ("decode", hid[:SERVE_SLOTS], w2, ", w2")):
         codes = analyzer.plan_codes(
             "dynamic", profiler.block_density(xs, blk[:2]),
-            profiler.block_density(w1, blk[1:]), TPUCostModel())
+            profiler.block_density(w, blk[1:]), TPUCostModel())
+        name = f"dispatch (bf16, 256, {label} {xs.shape[0]} rows{suffix})"
         kernel_entry(
-            f"dispatch (bf16, 256, {label} {xs.shape[0]} rows)",
-            "src/repro_torch/kernels/csrc/dispatch.cu",
+            name, "src/repro_torch/kernels/csrc/dispatch.cu",
             "src/repro/core/dynasparse.py:239",
-            lambda xs=xs, codes=codes:
-            K.dispatch.block_matmul(xs, w1, codes, blk),
-            lambda xs=xs, codes=codes:
-            K.dispatch.block_matmul_plain(xs, w1, codes, blk),
-            lambda xs=xs: torch.matmul(xs, w1),
-            dispatch_work(torch, K, xs, w1, codes, blk), lambda g, w: True,
-            tol=BF16_TOL, peak=PEAK_BF16, line=False)
-        record("dispatch_codes", case=label, rows=xs.shape[0],
+            lambda xs=xs, w=w, codes=codes:
+            K.dispatch.block_matmul(xs, w, codes, blk, pad_rows=False),
+            lambda xs=xs, w=w, codes=codes:
+            K.dispatch.block_matmul_plain(xs, w, codes, blk, pad_rows=False),
+            lambda xs=xs, w=w: torch.matmul(xs, w),
+            dispatch_work(torch, K, xs, w, codes, blk), lambda g, w: True,
+            tol=DISPATCH_BF16_TOL, peak=PEAK_BF16,
+            line=(label, suffix) == ("decode", ""), line_name=LM_DISPATCH,
+            units="mma")
+        shape = K.dispatch.mma_launch(xs.shape[0], *codes.shape, blk)
+        record("dispatch_codes", case=f"{label}{suffix}", rows=xs.shape[0],
                padded_rows=codes.shape[0] * blk[0],
                histogram=torch.bincount(codes.flatten().long(),
-                                        minlength=4).tolist())
+                                        minlength=4).tolist(),
+               launch=dataclasses.asdict(shape),
+               ctas=shape.row_ctas * shape.col_ctas * shape.splits)
     crng = np.random.default_rng(4)
     cases = []
     for b_, (xs, ys) in (((256, 256, 256), (x[:300], w1[:, :600])),
@@ -685,7 +732,22 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
                       K.dispatch.block_matmul(xs, ys, c, b_),
                       lambda xs=xs, ys=ys, c=c, b_=b_:
                       K.dispatch.block_matmul_plain(xs, ys, c, b_)))
-    small_checks("dispatch", cases, tol=BF16_TOL)
+    # decode-sized row counts: one 16-row tile (m = 1, 4), two (17), a
+    # ragged 128-row tile (300); each split over w1's k-blocks, padded
+    # and (as the FFN calls it) x's rows only
+    for m in (1, 4, 17, 300):
+        c = torch.from_numpy(crng.integers(0, 4, size=(
+            1 if m <= 256 else 2, w1.shape[1] // 256,
+            w1.shape[0] // 256)).astype(np.int32)).to(dev)
+        for pad in (True, False):
+            cases.append((
+                f"bf16 random codes (256, 256, 256) decode m={m} x w1"
+                f"{'' if pad else ', pad_rows=False'}",
+                lambda m=m, c=c, pad=pad: K.dispatch.block_matmul(
+                    x[:m], w1, c, blk, pad_rows=pad),
+                lambda m=m, c=c, pad=pad: K.dispatch.block_matmul_plain(
+                    x[:m], w1, c, blk, pad_rows=pad)))
+    small_checks("dispatch", cases, tol=DISPATCH_BF16_TOL)
 
     # ---------------- phase 8: LM scoring, full width, flash --------------
     rng = np.random.default_rng(0)
@@ -892,37 +954,42 @@ def profile_device(torch, fn, n: int = 3) -> dict:
 
 def dispatch_work(torch, K, x, y, codes, block) -> tuple:
     """(flops, bytes) the dispatch kernel's non-SKIP steps need on these
-    inputs: every step's tile products at 16x16x16, and every x / y tile
-    that at least one step reads (SPMM steps counted by occupancy), read
-    once, plus the code grid and the output written once."""
+    inputs: every step's tile products at 16x16x16 over the row tiles that
+    hold x's m rows, and every x / y tile that at least one step reads
+    (SPMM steps counted by occupancy), read once, plus the code grid and
+    the m rows of output written once (the padding rows are not needed)."""
     bm, bk, bn = block
     I, J, Kb = codes.shape
+    m = x.shape[0]
     xp = torch.nn.functional.pad(x, (0, Kb * bk - x.shape[1],
-                                     0, I * bm - x.shape[0]))
+                                     0, I * bm - m))
     yp = torch.nn.functional.pad(y, (0, J * bn - y.shape[1],
                                      0, Kb * bk - y.shape[0]))
     tm, tk, tn = bm // 16, bk // 16, bn // 16
     ox = K.dispatch.tile_occupancy(xp).reshape(I, tm, Kb, tk).float()
     oy = K.dispatch.tile_occupancy(yp).reshape(Kb, tk, J, tn).float()
+    # row tiles of each row block that hold one of x's rows
+    real = (-(-m // 16) - tm * torch.arange(I, device=x.device)).clamp(
+        0, tm).float()                                      # (I,)
     c = codes.long()
     gemm, spdmm, spmm = (c == 1).float(), (c == 2).float(), (c == 3).float()
     rx = ox.sum(1)                                          # (I, Kb, tk)
     cy = oy.sum(3)                                          # (Kb, tk, J)
     pairs = torch.einsum("ikt,ktj->ijk", rx, cy)            # (I, J, Kb)
     tile = 2.0 * 16 ** 3
-    flops = tile * (gemm.sum() * tm * tk * tn
+    flops = tile * ((gemm * real[:, None, None]).sum() * tk * tn
                     + (spdmm * rx.sum(2)[:, None, :]).sum() * tn
                     + (spmm * pairs).sum())
     any_g = (gemm.sum(1) > 0).float()                       # (I, Kb)
     any_s = ((spdmm + spmm).sum(1) > 0).float()
-    x_tiles = (any_g[:, None, :, None] + (1 - any_g)[:, None, :, None]
-               * any_s[:, None, :, None] * ox).sum()
+    x_tiles = ((any_g * real[:, None]).sum() * tk
+               + ((1 - any_g) * any_s * rx.sum(2)).sum())
     gd = ((gemm + spdmm).sum(0) > 0).float().T              # (Kb, J)
     sp = (spmm.sum(0) > 0).float().T
     y_tiles = (gd[:, None, :, None] + (1 - gd)[:, None, :, None]
                * sp[:, None, :, None] * oy).sum()
     nbytes = (x.element_size() * (x_tiles + y_tiles) * 256
-              + 4.0 * (codes.numel() + I * bm * J * bn))
+              + 4.0 * (codes.numel() + m * J * bn))
     return float(flops), float(nbytes)
 
 

@@ -90,7 +90,9 @@ def _block_path(x, y, codes, block, static, out, skip) -> torch.Tensor:
         xb = formats.dense_to_bcsr(x, TILE)
         full = _spdmm.spdmm(xb, _dispatch.pad_to(y, TILE[1], 16).contiguous())
         return full[:m, :n]
-    full = _dispatch.block_matmul(x, y, codes, block, out=out, skip=skip)
+    # the padded rows are needed only where csr_spmm shares ``out``
+    full = _dispatch.block_matmul(x, y, codes, block, out=out, skip=skip,
+                                  pad_rows=out is not None)
     return full[:m, :n]
 
 

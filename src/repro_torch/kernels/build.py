@@ -5,7 +5,7 @@ shared library with a plain C interface, loaded with ``ctypes``.  The first
 use of any kernel builds every library at once, one ``nvcc`` process per
 source, all started together, into ``build/repro_torch_kernels/`` at the
 repository root (git-ignored).  A library's file name carries a hash of its
-sources and flags, so an edited kernel is rebuilt and an unchanged one is
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and an unchanged one is
 reused.  A failed build raises with the compiler's output.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -32,6 +32,7 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -46,9 +47,9 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in ((CSRC / "common.cuh").read_bytes(),
-                 (CSRC / f"{name}.cu").read_bytes(),
-                 " ".join(FLAGS).encode()):
+    for part in ([p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+                 + [(CSRC / f"{name}.cu").read_bytes(),
+                    " ".join(FLAGS).encode()]):
         h.update(part)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -89,12 +90,17 @@ def build_all() -> float:
 def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of library ``lib``, with its argument
     types declared (pointers and the stream as ``c_void_p``) and an int
-    return code (a ``cudaError_t``)."""
-    if lib not in _libs:
-        build_all()
-    fn = getattr(_libs[lib], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    return code (a ``cudaError_t``).  Declared once and kept: the kernels'
+    wrappers run on the LM's per-token path, where host time counts."""
+    key = (lib, symbol)
+    fn = _functions.get(key)
+    if fn is None:
+        if lib not in _libs:
+            build_all()
+        fn = getattr(_libs[lib], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
     return fn
 
 
@@ -106,6 +112,14 @@ def check(rc: int, name: str) -> None:
 def stream(t) -> int:
     """The current CUDA stream of ``t``'s device, as the C side takes it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_aligned(name: str, t, align: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``align``-byte boundary (the
+    kernels' 16-byte ``cp.async`` copies need it; nothing falls back)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data at {t.data_ptr():#x} is not "
+                         f"{align}-byte aligned")
 
 
 def require(name: str, t, dtype) -> None:

@@ -34,12 +34,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Store a float32 result as the output's element type (round to nearest).
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 // Copy one 16x16 tile of g (row stride ld elements) to rows
 // [row0, row0 + 16) and columns [col0, col0 + 16) of s, widened to
 // float32; one element per thread, neighbouring tx on neighbouring

@@ -3,9 +3,12 @@
 Port of ``repro.kernels.flash_attention`` (the Pallas kernel at
 ``src/repro/kernels/flash_attention.py:75``).  Not part of the paper: it is
 the LM-side hot spot of the framework the technique is embedded in.  The
-CUDA kernel is ``csrc/flash_attention.cu``: one CTA per (b*h, block of
+CUDA kernels are in ``csrc/flash_attention.cu``: one CTA per (b*h, block of
 query rows), K/V streamed through shared memory, running max and
-denominator in float32, GQA kv heads read in place.
+denominator in float32, GQA kv heads read in place.  The route follows the
+type, in the open (:data:`ROUTES`): bfloat16 goes to the tensor-core
+kernel (``mma.sync``, P rounded to bf16 for P V), float32 to the first
+version on the FP32 FMA units, which the float32 checks at 3e-4 need.
 
 :func:`flash_attention_plain` is the plain PyTorch version of the same
 function, including the reference kernel's edge semantics: causal queries
@@ -25,7 +28,9 @@ from repro_torch.kernels import build
 
 launches = 0
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> C entry point of csrc/flash_attention.cu
+ROUTES = {torch.bfloat16: "rt_flash_attention_bf16",
+          torch.float32: "rt_flash_attention_f32"}
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -78,29 +83,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query head h reads kv head h // (H / Hkv).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (float32 or bfloat16, D in 16/32/64/128) or raises.
+    of its type (bfloat16: tensor cores; float32: FMA units), D in
+    16/32/64/128, or raises.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
     global launches
     _check(q, k, v, bq, bk)
     b, h, sq, d = q.shape
-    if d not in HEAD_DIMS or q.dtype not in DTYPES:
+    if d not in HEAD_DIMS or q.dtype not in ROUTES:
         raise ValueError(f"flash_attention: head dim {d} / dtype {q.dtype} "
-                         f"not supported by the kernel ({HEAD_DIMS}, "
+                         f"not supported by the kernels ({HEAD_DIMS}, "
                          "float32 or bfloat16)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require(f"flash_attention {name}", t, q.dtype)
+        if q.dtype == torch.bfloat16:      # 16-byte cp.async rows
+            build.require_aligned(f"flash_attention {name}", t)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = build.function("flash_attention", "rt_flash_attention",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    fn = build.function("flash_attention", ROUTES[q.dtype],
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_void_p])
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   DTYPES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d, bq,
-                   bk, int(causal), d ** -0.5, build.stream(q)),
-                "flash_attention")
+                   b, h, k.shape[1], sq, k.shape[2], d, bq, bk, int(causal),
+                   d ** -0.5, build.stream(q)), "flash_attention")
     launches += 1
     return out

@@ -14,6 +14,9 @@ from repro_torch.core.perf_model import Primitive
 from repro_torch.kernels import dispatch, ops
 
 TOL = dict(atol=3e-4, rtol=3e-4)
+# bf16 dispatch vs its plain version: both sum the same exact bf16 products
+# in float32, so only the order of the float32 sums differs
+MMA_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 @pytest.fixture
@@ -72,18 +75,19 @@ def test_tile_nnz_kernel_is_exact(cuda, dtype):
     assert K.launch_counts()["tile_nnz"] == 13
 
 
+@pytest.mark.parametrize("hkv", [2, 8])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal,sq,skv,bq,bk", [
     (True, 128, 128, 128, 128), (True, 40, 40, 16, 16),
     (False, 64, 128, 64, 128), (True, 80, 48, 16, 16),
     (True, 48, 40, 16, 8), (True, 300, 300, 128, 128)])
 def test_flash_attention_kernel_matches_plain(cuda, d, causal, sq, skv, bq,
-                                              bk):
+                                              bk, hkv):
     g = torch.Generator(device=cuda)
     g.manual_seed(d + sq)
     q = torch.randn((2, 8, sq, d), generator=g, device=cuda)
-    k = torch.randn((2, 2, skv, d), generator=g, device=cuda)
-    v = torch.randn((2, 2, skv, d), generator=g, device=cuda)
+    k = torch.randn((2, hkv, skv, d), generator=g, device=cuda)
+    v = torch.randn((2, hkv, skv, d), generator=g, device=cuda)
     kw = dict(causal=causal, bq=bq, bk=bk)
     K.reset_launch_counts()
     got = ops.flash_attention(q, k, v, **kw)
@@ -105,7 +109,7 @@ def test_dispatch_large_blocks_and_bf16(cuda, block, dtype):
     y = sparse(12, 520, 600, 0.1, cuda).to(dtype)
     shape = (-(-300 // block[0]), -(-600 // block[2]), -(-520 // block[1]))
     codes = torch.randint(0, 4, shape, dtype=torch.int32, device=cuda)
-    tol = TOL if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
+    tol = TOL if dtype == torch.float32 else MMA_TOL
     torch.testing.assert_close(
         dispatch.block_matmul(x, y, codes, block),
         dispatch.block_matmul_plain(x, y, codes, block), **tol)
@@ -133,3 +137,51 @@ def test_lm_smoke_dynasparse_serving_equals_dense(cuda):
     r_dense = ServeEngine(dense, params, slots=2, max_seq=16).generate(reqs)
     for a, b in zip(r_ds, r_dense):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_flash_attention_bf16_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 16, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, causal=True)          # D = 48
+    flat = torch.zeros(1 + 2 * 16 * 64, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(1, 2, 16, 64)                       # 2-byte offset
+    with pytest.raises(ValueError):
+        K.flash_attention.flash_attention(odd, odd, odd, bq=16, bk=16)
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 300])
+@pytest.mark.parametrize("block", [(256, 256, 256), (128, 64, 256),
+                                   (32, 48, 64)])
+def test_dispatch_bf16_decode_rows_and_split_k(cuda, m, block):
+    bm, bk, bn = block
+    x = sparse(13, m, 1000, 0.5, cuda).bfloat16()
+    y = sparse(14, 1000, 700, 0.1, cuda).bfloat16()
+    shape = (-(-m // bm), -(-700 // bn), -(-1000 // bk))
+    codes = torch.randint(0, 4, shape, dtype=torch.int32, device=cuda)
+    want = dispatch.block_matmul_plain(x, y, codes, block)
+    K.reset_launch_counts()
+    got = dispatch.block_matmul(x, y, codes, block)
+    torch.testing.assert_close(got, want, **MMA_TOL)
+    assert K.launch_counts()["dispatch"] == 1
+    assert not got[m:].any()                 # padded rows stay zero
+    # x's rows only, as the FFN calls it: the same values, no padding rows
+    rows = dispatch.block_matmul(x, y, codes, block, pad_rows=False)
+    assert rows.shape == (m, got.shape[1]) and torch.equal(rows, got[:m])
+    # every element of a given out is written, and a rerun is bitwise equal
+    out = torch.full_like(got, float("nan"))
+    dispatch.block_matmul(x, y, codes, block, out=out)
+    assert torch.equal(out, got)
+    # the device flag skips the whole grid
+    kept = torch.full_like(got, 7.0)
+    flag = torch.ones((), dtype=torch.int32, device=cuda)
+    dispatch.block_matmul(x, y, codes, block, out=kept, skip=flag)
+    assert bool((kept == 7.0).all())
+
+
+def test_dispatch_bf16_raises_on_misaligned_rows(cuda):
+    flat = torch.zeros(1 + 64 * 64, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(64, 64)                   # 2-byte offset
+    y = torch.zeros((64, 64), dtype=torch.bfloat16, device=cuda)
+    codes = torch.ones((1, 1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        dispatch.block_matmul(x, y, codes, (64, 64, 64))
