@@ -20,9 +20,13 @@ card at the shapes its path gives it, then drives the port's paths:
   tokens and decode == full-forward logits on the card.
 
 bf16 operands run on the tensor-core routes of ``dispatch`` and
-``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes; each
+``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes
+(register microtiles fed by ``cp.async`` or double buffers); each
 ``kernel`` record names its route (``mma``, ``fma``, or ``simt`` for the
-integer ``tile_nnz``).  The bf16 ``dispatch`` is timed on both FFN
+integer ``tile_nnz``).  ``gemm`` is also timed at the 16-wide shapes the
+path launches, and must equal the float32 ``dispatch`` with all-GEMM codes
+and one k-block bit for bit; the float32 ``dispatch`` must equal its plain
+version bit for bit on the planner's grid.  The bf16 ``dispatch`` is timed on both FFN
 products (w1: 2048 -> 8192, w2: 8192 -> 2048) at prefill and decode
 shapes and checked at decode row counts 1, 4, 17 and 300.
 
@@ -219,16 +223,54 @@ def main() -> int:
     nn = Hp.shape[1]
     dense_lib = lambda: torch.matmul(Ap, Hp)                  # noqa: E731
 
-    # gemm: the gemm strategy's Aggregate product
+    # gemm: the gemm strategy's Aggregate product (bound by operations),
+    # then the 16-wide products the path also launches (bound by x's bytes)
+    def mm_work(x, y):
+        (m_, k_), n_ = x.shape, y.shape[1]
+        return 2.0 * m_ * k_ * n_, 4.0 * (m_ * k_ + k_ * n_ + m_ * n_)
+
     kernel_entry(
         "gemm", "src/repro_torch/kernels/csrc/gemm.cu",
         "src/repro/kernels/gemm.py:37",
         lambda: K.gemm.gemm(Ap, Hp), lambda: K.gemm.gemm_plain(Ap, Hp),
-        dense_lib, (2.0 * mm * kk * nn, 4.0 * (mm * kk + kk * nn + mm * nn)),
-        lambda g, w: True)
+        dense_lib, mm_work(Ap, Hp), lambda g, w: True)
+    tf = {k_: v.float() for k_, v in sage.tensors.items()}
+    H1 = torch.relu(tf["A_mean"] @ tf["H0"] @ tf["Wneigh1"]
+                    + tf["H0"] @ tf["Wself1"])
+    H1p = K.dispatch.pad_to(H1, 16, 16).contiguous()         # (3328, 16)
+    for label, x_, y_ in (("update Hp @ W1p 3328x3712x16", Hp, W1p),
+                          ("A @ H1 3328x3328x16", Ap, H1p)):
+        kernel_entry(
+            f"gemm ({label})", "src/repro_torch/kernels/csrc/gemm.cu",
+            "src/repro/kernels/gemm.py:37",
+            lambda x_=x_, y_=y_: K.gemm.gemm(x_, y_),
+            lambda x_=x_, y_=y_: K.gemm.gemm_plain(x_, y_),
+            lambda x_=x_, y_=y_: torch.matmul(x_, y_), mm_work(x_, y_),
+            lambda g, w: True, line=False)
+    # one k-block of all-GEMM codes makes each dispatch output one fmaf
+    # chain over k from 0, then 0 + chain: gemm's value bit for bit
+    one_kb = torch.ones((mm // 64, nn // 16, 1), dtype=torch.int32,
+                        device=dev)
+    got_g = K.gemm.gemm(Ap, Hp)
+    got_d = K.dispatch.block_matmul(Ap, Hp, one_kb, (64, kk, 16))
+    torch.cuda.synchronize()
+    g_bitwise = bool(torch.equal(got_g, got_d))
+    record("gemm_vs_dispatch", block=[64, kk, 16], codes="all GEMM",
+           bitwise=g_bitwise,
+           max_abs_diff=float((got_g - got_d).abs().max()))
+    check(g_bitwise, "gemm != one-k-block all-GEMM dispatch")
+    del got_g, got_d
     small_checks("gemm", [
         ("update 3328x3712x16", lambda: K.gemm.gemm(Hp, W1p),
          lambda: K.gemm.gemm_plain(Hp, W1p)),
+        ("1552x80x1552 (128 tile, overhang)",
+         lambda: K.gemm.gemm(Ap[:1552, :80].contiguous(),
+                             Hp[:80, :1552].contiguous()),
+         lambda: K.gemm.gemm_plain(Ap[:1552, :80], Hp[:80, :1552])),
+        ("784x48x784 (16 tile)",
+         lambda: K.gemm.gemm(Ap[:784, :48].contiguous(),
+                             Hp[:48, :784].contiguous()),
+         lambda: K.gemm.gemm_plain(Ap[:784, :48], Hp[:48, :784])),
         ("16x16x16", lambda: K.gemm.gemm(Ap[:16, :16].contiguous(),
                                           Hp[:16, :16].contiguous()),
          lambda: K.gemm.gemm_plain(Ap[:16, :16], Hp[:16, :16]))])
@@ -327,14 +369,21 @@ def main() -> int:
                                 .astype(np.int32)).to(dev)
 
     cases = []
-    for blk, (x, y) in (((64, 64, 16), (A, H0)), ((32, 32, 16), (A, H0)),
-                        ((16, 16, 16), (H0, W1)),
-                        ((64, 64, 16), (torch.zeros_like(A), H0))):
+    for blk, (x, y), kind in (
+            ((64, 64, 16), (A, H0), "random"),
+            ((32, 32, 16), (A, H0), "random"),
+            ((16, 16, 16), (H0, W1), "random"),
+            ((64, 64, 16), (torch.zeros_like(A), H0), "random"),
+            ((128, 48, 256), (A, H0), "random"),
+            ((256, 64, 128), (A, H0), "random"),
+            ((256, 48, 256), (A, H0), "random"),
+            ((64, 64, 16), (A, H0), "all-SKIP")):
         I = -(-x.shape[0] // blk[0])
         Kb = -(-x.shape[1] // blk[1])
         J = -(-y.shape[1] // blk[2])
-        c = rand_codes(I, J, Kb)
-        cases.append((f"random codes {blk} {tuple(x.shape)}x{tuple(y.shape)}",
+        c = (rand_codes(I, J, Kb) if kind == "random" else
+             torch.zeros((I, J, Kb), dtype=torch.int32, device=dev))
+        cases.append((f"{kind} codes {blk} {tuple(x.shape)}x{tuple(y.shape)}",
                       lambda x=x, y=y, c=c, blk=blk:
                       K.dispatch.block_matmul(x, y, c, blk),
                       lambda x=x, y=y, c=c, blk=blk:
@@ -351,7 +400,33 @@ def main() -> int:
         lambda: K.dispatch.block_matmul(A, H0, codes, blk),
         lambda: K.dispatch.block_matmul_plain(A, H0, codes, blk),
         lambda: torch.matmul(A, H0),
-        dispatch_work(torch, K, A, H0, codes, blk), lambda g, w: True)
+        dispatch_work(torch, K, A, H0, codes, blk),
+        lambda g, w: bool(torch.equal(g, w)))
+    record("dispatch_codes", case="A_mean @ H0", block=list(blk),
+           histogram=torch.bincount(codes.flatten().long(),
+                                    minlength=4).tolist(),
+           launch=dataclasses.asdict(K.dispatch.fma_launch(
+               codes.shape[0] * blk[0], codes.shape[1], blk)))
+    # the Updates' block (16, 16, 16), on the planner's grid for H0 @ Wself1
+    ublk = next(k_.block_dims for k_ in sage.compiled.graph.kernels
+                if k_.rhs == "Wself1")
+    ucodes = analyzer.plan_codes(
+        "dynamic", profiler.block_density(H0, ublk[:2]),
+        profiler.block_density(W1, ublk[1:]), FPGACostModel())
+    kernel_entry(
+        f"dispatch (update H0 @ Wself1, {ublk})",
+        "src/repro_torch/kernels/csrc/dispatch.cu",
+        "src/repro/core/dynasparse.py:239",
+        lambda: K.dispatch.block_matmul(H0, W1, ucodes, ublk),
+        lambda: K.dispatch.block_matmul_plain(H0, W1, ucodes, ublk),
+        lambda: torch.matmul(H0, W1),
+        dispatch_work(torch, K, H0, W1, ucodes, ublk),
+        lambda g, w: bool(torch.equal(g, w)), line=False)
+    record("dispatch_codes", case="update H0 @ Wself1", block=list(ublk),
+           histogram=torch.bincount(ucodes.flatten().long(),
+                                    minlength=4).tolist(),
+           launch=dataclasses.asdict(K.dispatch.fma_launch(
+               ucodes.shape[0] * ublk[0], ucodes.shape[1], ublk)))
 
     # ---------------- phase 3: the main path ------------------------------
     want = oracle(sage, "sage")

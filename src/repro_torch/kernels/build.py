@@ -14,6 +14,7 @@ port on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +113,16 @@ def check(rc: int, name: str) -> None:
 def stream(t) -> int:
     """The current CUDA stream of ``t``'s device, as the C side takes it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (the kernels' launch shapes
+    are chosen to fill them)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_aligned(name: str, t, align: int = 16) -> None:

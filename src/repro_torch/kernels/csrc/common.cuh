@@ -1,8 +1,9 @@
 // Shared building blocks of the port's Hopper kernels (sm_90a).
 //
-// The matmul kernels work on 16x16 float32 sub-tiles with a 16x16 thread
-// block: thread (ty, tx) owns element (ty, tx) of each output sub-tile it
-// computes.  A sub-tile product stages both operands in shared memory and
+// The sparse matmul kernels (spdmm, spmm) work on 16x16 float32 sub-tiles
+// with a 16x16 thread block: thread (ty, tx) owns element (ty, tx) of each
+// output sub-tile it computes (gemm and dispatch use the register tiles of
+// fma.cuh and mma.cuh instead).  A sub-tile product stages both operands in shared memory and
 // accumulates with one fused multiply-add per reduction element, in
 // ascending k, into a float32 register.  Skipping a zero tile therefore
 // drops only exact-zero contributions: fma(0, y, p) == p for finite y, so

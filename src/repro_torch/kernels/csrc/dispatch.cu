@@ -5,7 +5,7 @@
 // where a lax.scan over output blocks and a fori_loop over k ran one
 // lax.switch branch -- and, with kernels on, one Pallas call of
 // src/repro/kernels/gemm.py:47, spdmm.py:92 or spmm.py:154 -- per (i, j, k)
-// step.  Each CTA owns one output tile inside one (bm, bn) block and runs
+// step.  Each warp owns output tiles inside one (bm, bn) block and runs
 // the k loop in order, reading the code of its block, codes[i, j, k], from
 // device memory:
 //
@@ -14,21 +14,52 @@
 //   SPDMM  walks only the lhs block's nonzero 16x16 tiles;
 //   SPMM   walks only the tile pairs nonzero on both sides.
 //
-// The code is the same for every thread of the CTA, so the branches do
+// The code is the same for every thread of a warp, so the branches do
 // not diverge.  ``skip`` (nullable) is a device flag: when it points to
 // nonzero the whole grid exits at once (the executor picked the row-CSR
 // path on the device).
 //
 // Two routes, chosen by the operands' type:
 //
-// * float32 (the GNN path), rt_dispatch, on the FP32 FMA units.  It stays
-//   the first version bit for bit: its rounding decides the writeback
-//   counts the next kernel plans from.  Blocks of 128 or 256 rows or
-//   columns run as 2 x 2 or 4 x 4 CTAs of 64 x 64 sharing their block's
-//   codes; operands are widened to float32 in shared memory; each step
-//   accumulates into a fresh float32 partial that is then added to the
-//   running sum, as the reference adds acc + step.  Bound: operations (the
-//   FP32 rate; the tensor cores' TF32 would change the rounding).
+// * float32 (the GNN path), rt_dispatch, on the FP32 FMA units.  What
+//   bounds it at the shapes the GNN path launches: the first Aggregate
+//   (A_mean @ H0 at (64, 64, 16), 3327 x 3327 @ 3327 x 3703) does 3.3
+//   GFLOP of occupied tile products (0.05 ms at 67 TFLOP/s), but only 5 %
+//   of A_mean's 16 x 16 tiles hold an edge, so most steps carry one x
+//   tile and the time goes to the walk, to staging y's rows and to the
+//   longest row tile's chain of steps (150 nonzero tiles; no split of k).
+//   The Updates (x @ W, 16 columns wide, at (16, 16, 16)) are bound by
+//   reading x once, in practice by each warp's chain of 232 steps.  The
+//   design does this about it:
+//     - each warp walks alone (no CTA barrier): it owns 16 (or 8) rows x
+//       16 columns inside one (bm, bn) block and follows that block's
+//       codes, so SKIP, GEMM, SpDMM and SPMM keep their meaning per (i,
+//       j, k); a CTA holds up to 4 warps of the same rows, whose x loads
+//       meet in L1 (the host picks the shape: kernels/dispatch.py
+//       fma_launch);
+//     - x's occupancy is one bitmask word per (16-row tile, k-block, 32
+//       slices), written by x_words_kernel in the same C call; a warp
+//       turns 32 units' codes and words into its list of steps at once
+//       (a scan over the lanes, the next window's loads in flight), so
+//       an empty slice costs no load, barrier or FMA;
+//     - a step's x tile rows and 16 x 16 of y go to the warp's own ring
+//       of 16-byte cp.async copies; a lane multiplies 1-2 rows x 4
+//       columns from 16-byte shared loads (fma.cuh); under SPMM the warp
+//       tests its staged y tile (a ballot) and skips it when all zeros;
+//     - x and y are not padded: rows and columns past them are
+//       zero-filled copies.  Rows that are not 16-byte aligned (A_mean's
+//       and H0's 3327 and 3703 floats) cost the walk far more than one
+//       extra pass, so the same C call stages them: x_words_kernel writes
+//       x's nonzero tiles to an aligned scratch (x is read there anyway),
+//       y_pad_kernel copies y to rows of a multiple of 4 floats.
+//   Rounding: the first version's, bit for bit, since its rounding
+//   decides the writeback counts the next kernel plans from.  For each
+//   output and each k-block in ascending k that is not SKIP, a fresh
+//   float32 partial runs one fmaf chain over the k of its used slices in
+//   ascending order, then acc += partial (the reference's acc + step).
+//   Skipping a zero tile drops only exact-zero contributions, and a
+//   k-block with no used slice would add an exact zero.  No split over k,
+//   no atomics.  Not the tensor cores: TF32 would change the rounding.
 //
 // * bfloat16 (the LM's dynasparse FFN at (256, 256, 256)), rt_dispatch_mma,
 //   on the tensor cores.  A prefill wave (512 x 2048 @ 2048 x 8192) is
@@ -68,148 +99,367 @@
 //   zeros, so the result does not depend on which tiles were skipped.
 //   Still on the FMA units: the float32 route above, whose rounding the
 //   GNN path's writeback counts depend on.
-#include "common.cuh"
-#include "mma.cuh"
+#include "fma.cuh"
 
 namespace {
 
-template <int TM, int TN>
-__global__ void dispatch_kernel(const float* __restrict__ x,
-                                const float* __restrict__ y,
-                                const int* __restrict__ codes,
-                                const uint8_t* __restrict__ occx,
-                                const uint8_t* __restrict__ occy,
-                                float* __restrict__ out,
-                                const int* __restrict__ skip, int J, int K,
-                                int bk, int rm, int rn, long ldx, long ldy) {
-  if (skip != nullptr && *skip != 0) return;
-  constexpr int BM = TM * rt::T, BN = TN * rt::T;
-  __shared__ float xs[BM][rt::T + 1];
-  __shared__ float ys[rt::T][BN + 1];
-  const int bi = blockIdx.y, bj = blockIdx.x;   // sub-block of the output
-  const int kts = bk / rt::T;       // 16-wide k slices per block
-  const long xtc = ldx / rt::T;     // tile columns of x (= tile rows of y)
-  const long ytc = ldy / rt::T;     // tile columns of y
-  const int* code_row = codes + ((long)(bi / rm) * J + bj / rn) * K;
+// --------------------------------------------------------------- float32 --
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b) acc[a][b] = 0.f;
+constexpr int FMA_SMEM_PER_WARP = 12288;   // bytes of ring a warp may use
+constexpr int FMA_XS = rt::T + rt::XPAD;   // shared x row stride (floats)
+constexpr int STEP_CAP = 128;              // steps of a walk window
 
-  for (int k = 0; k < K; ++k) {
-    const int code = code_row[k];
-    if (code == rt::SKIP) continue;
-    float part[TM][TN];
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int b = 0; b < TN; ++b) part[a][b] = 0.f;
-
-    for (int kt = 0; kt < kts; ++kt) {
-      const long gk = (long)k * kts + kt;  // global 16-wide k slice
-      bool ux[TM], uy[TN];
-      bool anyx = false, anyy = false;
-#pragma unroll
-      for (int a = 0; a < TM; ++a) {
-        ux[a] = code == rt::GEMM || occx[((long)bi * TM + a) * xtc + gk];
-        anyx |= ux[a];
-      }
-#pragma unroll
-      for (int b = 0; b < TN; ++b) {
-        uy[b] = code != rt::SPMM || occy[gk * ytc + (long)bj * TN + b];
-        anyy |= uy[b];
-      }
-      if (!(anyx && anyy)) continue;  // uniform across the CTA
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-        if (ux[a])
-          rt::load_tile(xs, a * rt::T, 0,
-                        x + ((long)bi * BM + a * rt::T) * ldx + gk * rt::T,
-                        ldx);
-#pragma unroll
-      for (int b = 0; b < TN; ++b)
-        if (uy[b])
-          rt::load_tile(ys, 0, b * rt::T,
-                        y + gk * rt::T * ldy + (long)bj * BN + b * rt::T, ldy);
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < TN; ++b)
-          if (ux[a] && uy[b])
-            part[a][b] = rt::tile_fma(xs, a * rt::T, ys, b * rt::T, part[a][b]);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int b = 0; b < TN; ++b) acc[a][b] += part[a][b];
-  }
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b)
-      out[((long)bi * BM + a * rt::T + threadIdx.y) * ldy + (long)bj * BN +
-          b * rt::T + threadIdx.x] = acc[a][b];
-}
-
-struct Args {
-  const float* x;
-  const float* y;
-  const int* codes;
-  const uint8_t* occx;
-  const uint8_t* occy;
-  float* out;
+struct FmaArgs {
+  const float* x;           // (m, kdim) row-major
+  const float* y;           // (kdim, ldy) row-major, ny real columns
+  const int* codes;         // (I, J, K)
+  uint32_t* occx;           // (ceil(m/16), K, W) x tile bitmasks
+  float* xt;                // x's nonzero 16 x 16 tiles, or nullptr
+  float* out;               // (out_rows, J * bn)
   const int* skip;
-  int I, J, K, bk, rm, rn;
-  long ldx, ldy;
-  cudaStream_t stream;
+  int m, kdim, ny, ldy, out_rows;
+  int I, J, K, bm, bk, bn, W;
+  int row_warps, col_warps;  // warps of a CTA along rows and columns
 };
 
-template <int TM, int TN>
-int launch(const Args& a) {
-  dim3 grid(a.J * a.rn, a.I * a.rm), block(rt::T, rt::T);
-  dispatch_kernel<TM, TN><<<grid, block, 0, a.stream>>>(
-      a.x, a.y, a.codes, a.occx, a.occy, a.out, a.skip, a.J, a.K, a.bk,
-      a.rm, a.rn, a.ldx, a.ldy);
+// Ring geometry of one warp with WR rows: STAGES stages, each one k
+// slice: the x tile's WR rows and 16 x 16 of y.
+template <int WR>
+struct FmaRing {
+  static constexpr int X = WR * FMA_XS, Y = rt::T * rt::T;   // floats
+  static constexpr int FIT = FMA_SMEM_PER_WARP / (4 * (X + Y));
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT < 2 ? 2 : FIT;
+  static constexpr int BYTES = STAGES * (X + Y) * 4;
+};
+
+// occx[w] for w < words, w = (row tile * K + k-block) * W + word: bit j
+// says whether x's 16 x 16 tile at that row tile and k slice
+// (k-block * bk / 16 + 32 word + j) holds a nonzero (-0.0 counts as zero,
+// as tile_nnz counts x != 0; what lies past x reads as zeros).  One warp
+// per word: lane l reads 8 elements of the tile's row l / 2.  When x's
+// rows are not 16-byte aligned (xt != nullptr), a nonzero tile is also
+// written to xt, tile-major and aligned ((row tile * K bk / 16 + slice) *
+// 256 floats), where the walk copies it from with 16-byte copies.
+__global__ void x_words_kernel(FmaArgs a, int words) {
+  if (a.skip != nullptr && *a.skip != 0) return;
+  const int w = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (w >= words) return;                      // uniform over the warp
+  const int lane = threadIdx.x % 32;
+  const int kts = a.bk / rt::T;
+  const int kw = a.K * a.W;
+  const int kb = w % kw / a.W, word = w % a.W;
+  const long rtile = w / kw, r = rtile * rt::T + lane / 2;
+  const int n = min(32, kts - 32 * word);
+  const bool vec = a.xt == nullptr;            // aligned rows
+  uint32_t bits = 0;
+#pragma unroll 2
+  for (int j = 0; j < n; ++j) {
+    const long slice = (long)kb * kts + 32 * word + j;
+    const long c = slice * rt::T + (lane % 2) * 8;
+    float4 u0 = make_float4(0.f, 0.f, 0.f, 0.f), u1 = u0;
+    if (r < a.m) {
+      const float* p = a.x + r * a.kdim + c;
+      if (vec && c + 8 <= a.kdim) {
+        u0 = reinterpret_cast<const float4*>(p)[0];
+        u1 = reinterpret_cast<const float4*>(p)[1];
+      } else {
+        float e[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = c + i < a.kdim ? p[i] : 0.f;
+        u0 = make_float4(e[0], e[1], e[2], e[3]);
+        u1 = make_float4(e[4], e[5], e[6], e[7]);
+      }
+    }
+    const uint32_t v = __float_as_uint(u0.x) | __float_as_uint(u0.y) |
+                       __float_as_uint(u0.z) | __float_as_uint(u0.w) |
+                       __float_as_uint(u1.x) | __float_as_uint(u1.y) |
+                       __float_as_uint(u1.z) | __float_as_uint(u1.w);
+    if (__any_sync(0xffffffffu, (v & 0x7fffffffu) != 0)) {
+      bits |= 1u << j;
+      if (!vec) {
+        float4* t = reinterpret_cast<float4*>(
+            a.xt + ((rtile * a.K * kts + slice) * rt::T + lane / 2) * rt::T +
+            (lane % 2) * 8);
+        t[0] = u0;
+        t[1] = u1;
+      }
+    }
+  }
+  if (lane == 0) a.occx[w] = bits;
+}
+
+// y copied to rows of ldy floats (a multiple of 4), the columns past ny
+// zero, so that the walk reads it with 16-byte copies: one thread per 4
+// floats of the copy.
+__global__ void y_pad_kernel(const float* __restrict__ y, int kdim, int ny,
+                             float* __restrict__ dst, int ldy,
+                             const int* __restrict__ skip) {
+  if (skip != nullptr && *skip != 0) return;
+  const int q = ldy / 4;                       // float4 per row
+  const long total = (long)kdim * q;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const int r = (int)(i / q), c = (int)(i - (long)r * q) * 4;
+    const float* src = y + (long)r * ny + c;
+    float4 v;
+    v.x = c < ny ? src[0] : 0.f;
+    v.y = c + 1 < ny ? src[1] : 0.f;
+    v.z = c + 2 < ny ? src[2] : 0.f;
+    v.w = c + 3 < ny ? src[3] : 0.f;
+    reinterpret_cast<float4*>(dst)[i] = v;
+  }
+}
+
+// Each warp walks on its own: it owns WR rows (8 or 16, inside one 16-row
+// x tile and one bm block) and 16 columns (inside one bn block, whose
+// codes it follows), with no barrier shared with other warps.  Lane (ly,
+// lx) = (lane / 4, lane % 4) owns rows ly + 8 h (h < WR / 8) and columns
+// 4 lx .. 4 lx + 3.  The warp's steps are the (k-block, 16-wide k slice)
+// pairs, in ascending k, where its code is GEMM, or SPDMM / SPMM while the
+// x tile is nonzero; a step stages the x tile's WR rows and 16 x 16 of y
+// in the warp's own ring.  The warps of a CTA share their x rows
+// (row_warps x col_warps, columns first), so their x loads meet in L1.
+template <int WR>
+__global__ void __launch_bounds__(256, 2) dispatch_fma_kernel(FmaArgs a) {
+  if (a.skip != nullptr && *a.skip != 0) return;
+  using R = FmaRing<WR>;
+  constexpr int S = R::STAGES;
+  constexpr int RL = WR / 8;                  // rows per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int st_kb[8][8];                 // [warp][slot] k-block
+  __shared__ uint32_t st_spmm[8][8];          // [warp][slot] code SPMM
+  __shared__ uint32_t st_steps[8][STEP_CAP];  // [warp] the window's steps
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int ly = lane / 4, lx = lane % 4;
+  const long ldo = (long)a.J * a.bn;
+  const long wrow = ((long)blockIdx.y * a.row_warps + warp / a.col_warps) *
+                    WR;
+  const long wcol = ((long)blockIdx.x * a.col_warps + warp % a.col_warps) *
+                    rt::T;
+  if (wrow >= a.out_rows || wcol >= ldo) return;   // the whole warp
+  float* xs = reinterpret_cast<float*>(smem) + (long)warp * (S * (R::X + R::Y));
+  float* ys = xs + S * R::X;                  // [S][16][16]
+  const int kts = a.bk / rt::T;
+  const int U = a.K * a.W;                    // (k-block, word) units
+  const long tile = wrow / rt::T;             // the warp's x row tile
+  const bool tile_real = tile * rt::T < a.m;
+  const int* code_row =
+      a.codes + ((wrow / a.bm) * a.J + wcol / a.bn) * (long)a.K;
+
+  // The walk's cursor.  A window is up to 32 units (k-block, word), one
+  // per lane: each lane reads its unit's code and x word and writes the
+  // unit's steps (slices with work, ascending) into the warp's step list
+  // at its offset (a scan over the lanes), so that taking the next step
+  // is one shared load.  A window holds at most STEP_CAP steps; the units
+  // that do not fit start the next window.  A window's global loads are
+  // issued when the previous window is built, so they fly during its
+  // steps.
+  uint32_t* steps = st_steps[warp];
+  int u0 = 0, win_u0 = 0, win_n = 0, next_j = 0;
+  int pf_u0 = -1, pf_code = 0;               // unit pf_u0 + lane, ahead
+  uint32_t pf_occ = 0;
+  auto prefetch = [&](int from) {
+    const int u = from + lane;
+    pf_u0 = from;
+    pf_code = rt::SKIP;
+    pf_occ = 0;
+    if (u < U) {
+      const int kb = a.W == 1 ? u : u / a.W, word = a.W == 1 ? 0 : u % a.W;
+      if (tile_real) pf_occ = a.occx[(tile * a.K + kb) * a.W + word];
+      pf_code = code_row[kb] & 3;
+    }
+  };
+  auto load_window = [&]() {
+    if (pf_u0 != u0) prefetch(u0);      // first window, or after a split
+    const int u = u0 + lane, code = pf_code;
+    const uint32_t occ = pf_occ;
+    uint32_t any = 0;
+    if (u < U && code != rt::SKIP) {
+      const int word = a.W == 1 ? 0 : u % a.W;
+      const int n = min(32, kts - 32 * word);
+      any = code == rt::GEMM ? (n >= 32 ? 0xffffffffu : (1u << n) - 1)
+                             : occ;
+    }
+    const int cnt = __popc(any);
+    int incl = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    const int fit = __popc(__ballot_sync(0xffffffffu, incl <= STEP_CAP));
+    const int lanes = min(fit, U - u0);
+    __syncwarp();                       // the previous list is consumed
+    if (lane < lanes) {
+      const uint32_t tag = (uint32_t)lane << 5 |
+                           (uint32_t)(code == rt::SPMM) << 18;
+      int pos = incl - cnt;
+      for (uint32_t bits = any; bits; bits &= bits - 1) {
+        const int sb = __ffs(bits) - 1;
+        steps[pos++] = (uint32_t)sb | tag | ((occ >> sb) & 1u) << 19;
+      }
+    }
+    __syncwarp();
+    win_u0 = u0;
+    win_n = __shfl_sync(0xffffffffu, incl, lanes - 1);
+    next_j = 0;
+    u0 += lanes;
+    if (u0 < U) prefetch(u0);           // the next window's loads fly now
+  };
+  // The next step (k-block, slice, flags: bit 0 SPMM, bit 1 the x tile is
+  // nonzero), or false when the walk is done.  Uniform over the warp.
+  auto next = [&](int& kb, int& slice, uint32_t& flags) -> bool {
+    while (next_j == win_n) {
+      if (u0 >= U) return false;
+      load_window();
+    }
+    const uint32_t d = steps[next_j++];
+    const int unit = win_u0 + (int)((d >> 5) & 31u);
+    kb = a.W == 1 ? unit : unit / a.W;
+    slice = (a.W == 1 ? 0 : unit % a.W) * 32 + (int)(d & 31u);
+    flags = d >> 18;
+    return true;
+  };
+
+  // x's WR rows come from x in place (16-byte aligned rows) or from its
+  // aligned copy of the nonzero tiles (xt; a zero tile is zero-filled,
+  // nothing read); y from y in place or its aligned padded copy.
+  const int KS = a.K * kts;                   // k slices of x
+  auto enqueue = [&](int slot, int kb, int slice, uint32_t flags) {
+    const long k0 = (long)kb * a.bk + (long)slice * rt::T;
+    float* xst = xs + slot * R::X;
+    if (a.xt == nullptr)
+      rt::warp_copy<WR, rt::T>(xst, FMA_XS, a.x, wrow, k0, a.m, a.kdim,
+                               a.kdim, lane);
+    else if (flags & 2u)
+      rt::warp_copy<WR, rt::T>(
+          xst, FMA_XS,
+          a.xt + ((tile * KS + (long)kb * kts + slice) * rt::T +
+                  wrow % rt::T) * rt::T,
+          0, 0, WR, rt::T, rt::T, lane);
+    else                                       // a zero tile: zero-fill
+      rt::warp_copy<WR, rt::T>(xst, FMA_XS, a.xt, 0, 0, 0, rt::T, rt::T,
+                               lane);
+    rt::warp_copy<rt::T, rt::T>(ys + slot * R::Y, rt::T, a.y, k0, wcol,
+                                a.kdim, a.ldy, a.ldy, lane);
+    if (lane == 0) {
+      st_kb[warp][slot] = kb;
+      st_spmm[warp][slot] = flags & 1u;
+    }
+  };
+
+  // acc: the running sum; part: the open k-block's partial.  A k-block
+  // opens at the warp's first step in it (part = 0) and closes at its
+  // first step in a later k-block, or at the end (acc += part).  A
+  // k-block with no step of this warp adds an exact zero.
+  float acc[RL][4], part[RL][4];
+#pragma unroll
+  for (int h = 0; h < RL; ++h)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[h][v] = part[h][v] = 0.f;
+  int open_kb = -1;
+
+  auto compute = [&](int slot) {
+    const int kb = st_kb[warp][slot];
+    if (kb != open_kb) {
+#pragma unroll
+      for (int h = 0; h < RL; ++h)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[h][v] += part[h][v];
+          part[h][v] = 0.f;
+        }
+      open_kb = kb;
+    }
+    const float* yst = ys + slot * R::Y;
+    if (st_spmm[warp][slot]) {
+      // SPMM: the pair runs only if this 16 x 16 y tile holds a nonzero
+      // (-0.0 counts as zero, as in tile_occupancy)
+      const float4* q = reinterpret_cast<const float4*>(
+          yst + (lane / 2) * rt::T + lane % 2 * 8);
+      const float4 v0 = q[0], v1 = q[1];
+      const uint32_t v = __float_as_uint(v0.x) | __float_as_uint(v0.y) |
+                         __float_as_uint(v0.z) | __float_as_uint(v0.w) |
+                         __float_as_uint(v1.x) | __float_as_uint(v1.y) |
+                         __float_as_uint(v1.z) | __float_as_uint(v1.w);
+      if (!__any_sync(0xffffffffu, (v & 0x7fffffffu) != 0)) return;
+    }
+    const float* xst = xs + slot * R::X;
+#pragma unroll
+    for (int k4 = 0; k4 < rt::T / 4; ++k4) {
+      float4 xa[RL], bv[4];
+#pragma unroll
+      for (int h = 0; h < RL; ++h)
+        xa[h] = *reinterpret_cast<const float4*>(
+            xst + (ly + 8 * h) * FMA_XS + k4 * 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        bv[kk] = *reinterpret_cast<const float4*>(
+            yst + (k4 * 4 + kk) * rt::T + lx * 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float b[4] = {bv[kk].x, bv[kk].y, bv[kk].z, bv[kk].w};
+        float ak[RL];
+#pragma unroll
+        for (int h = 0; h < RL; ++h) ak[h] = rt::lane_of(xa[h], kk);
+        rt::fma_step(part, ak, b);
+      }
+    }
+  };
+
+  // The warp's ring of S slots: step t lives in slot t % S; cp.async
+  // group t holds step t (empty groups only once the walk is done).
+  int queued = 0, kb, slice;
+  uint32_t flags;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (next(kb, slice, flags)) {
+      enqueue(queued % S, kb, slice, flags);
+      ++queued;
+    }
+    rt::cp_async_commit();
+  }
+  for (int done = 0; done < queued; ++done) {
+    rt::cp_async_wait<S - 2>();
+    __syncwarp();   // step `done` landed; slot (done - 1) % S is free
+    if (next(kb, slice, flags)) {
+      enqueue(queued % S, kb, slice, flags);
+      ++queued;
+    }
+    rt::cp_async_commit();
+    compute(done % S);
+  }
+  rt::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < RL; ++h) {
+    const long r = wrow + ly + 8 * h;
+    if (r >= a.out_rows) continue;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[h][v] += part[h][v];
+    *reinterpret_cast<float4*>(&a.out[r * ldo + wcol + lx * 4]) =
+        make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+  }
+}
+
+template <int WR>
+int launch_fma(const FmaArgs& a, cudaStream_t s) {
+  auto kernel = dispatch_fma_kernel<WR>;
+  const int warps = a.row_warps * a.col_warps;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      8 * FmaRing<WR>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long rows = (long)a.row_warps * WR, cols = (long)a.col_warps * rt::T;
+  const dim3 grid((unsigned)(((long)a.J * a.bn + cols - 1) / cols),
+                  (unsigned)((a.out_rows + rows - 1) / rows));
+  kernel<<<grid, warps * 32, warps * FmaRing<WR>::BYTES, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int TM>
-int launch_tn(int tn, const Args& a) {
-  switch (tn) {
-    case 1: return launch<TM, 1>(a);
-    case 2: return launch<TM, 2>(a);
-    case 4: return launch<TM, 4>(a);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-int launch_tm(int tm, int tn, const Args& a) {
-  switch (tm) {
-    case 1: return launch_tn<1>(tn, a);
-    case 2: return launch_tn<2>(tn, a);
-    case 4: return launch_tn<4>(tn, a);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// Sub-block edge in 16-wide tiles, and sub-blocks per block edge, for a
-// block edge of 16, 32 or a multiple of 64.
-bool split(int edge, int* tiles, int* per_block) {
-  if (edge == 16 || edge == 32) {
-    *tiles = edge / rt::T;
-    *per_block = 1;
-    return true;
-  }
-  if (edge > 0 && edge % 64 == 0) {
-    *tiles = 4;
-    *per_block = edge / 64;
-    return true;
-  }
-  return false;
+bool block_edge(int e) {
+  return e == 16 || e == 32 || e == 64 || e == 128 || e == 256;
 }
 
 // ---------------------------------------------------------------- bf16 --
@@ -531,21 +781,61 @@ int launch_mma_bm(int cta_m, int cta_n, const MmaArgs& a) {
 
 }  // namespace
 
-// float32 route.  x (I*bm, K*bk) and y (K*bk, J*bn) row-major float32,
-// zero-padded to block multiples; codes (I, J, K) int32; occx (I*bm/16,
-// K*bk/16) and occy (K*bk/16, J*bn/16) uint8 tile-occupancy flags; out
-// (I*bm, J*bn) float32.  bm and bn must be 16, 32 or a multiple of 64; bk
-// a multiple of 16.
-extern "C" int rt_dispatch(const float* x, const float* y, const int* codes,
-                           const uint8_t* occx, const uint8_t* occy,
-                           float* out, const int* skip, int I, int J, int K,
-                           int bm, int bk, int bn, void* stream) {
-  Args a{x, y, codes, occx, occy, out, skip, I, J, K, bk, 1, 1,
-         (long)K * bk, (long)J * bn, (cudaStream_t)stream};
-  int tm, tn;
-  if (!split(bm, &tm, &a.rm) || !split(bn, &tn, &a.rn) || bk % rt::T)
+// float32 route.  x (m, kdim) and y (kdim, ny) row-major float32, not
+// padded (what lies past them reads as zeros; m <= I*bm, kdim <= K*bk,
+// ny <= J*bn); codes (I, J, K) int32; out (out_rows, J*bn) float32 with
+// m <= out_rows <= I*bm, 16-byte aligned, every element written unless
+// *skip.  scratch, 16-byte aligned, as kernels/dispatch.py fma_scratch
+// sizes it: x's tile bitmasks (ceil(m/16) * K * ceil(bk/512) uint32,
+// rounded up to 4); then, when x's rows are not 16-byte aligned, room for
+// its tiles (ceil(m/16) * K*bk * 16 floats); then, when y's are not, for
+// y padded to rows of a multiple of 4 floats.  bm, bn in {16, 32, 64,
+// 128, 256}, bk % 16 == 0.  A warp owns warp_rows (8 or 16) x 16 outputs,
+// a CTA row_warps x col_warps warps (at most 8), as fma_launch picks
+// them.
+extern "C" int rt_dispatch(const float* x, int m, int kdim, const float* y,
+                           int ny, const int* codes, float* out,
+                           int out_rows, void* scratch, const int* skip,
+                           int I, int J, int K, int bm, int bk, int bn,
+                           int warp_rows, int row_warps, int col_warps,
+                           void* stream) {
+  const int W = (bk / rt::T + 31) / 32;
+  if (!block_edge(bm) || !block_edge(bn) || bk <= 0 || bk % rt::T ||
+      I < 0 || J < 0 || K < 0 || m < 0 || m > (long)I * bm ||
+      kdim > (long)K * bk || ny > (long)J * bn || out_rows < m ||
+      out_rows > (long)I * bm || (warp_rows != 8 && warp_rows != 16) ||
+      row_warps < 1 || col_warps < 1 || row_warps * col_warps > 8 ||
+      out == nullptr || ((uintptr_t)out & 15) || ((uintptr_t)scratch & 15))
     return (int)cudaErrorInvalidValue;
-  return launch_tm(tm, tn, a);
+  if (out_rows == 0 || J == 0) return 0;
+  const long mtiles = (m + rt::T - 1) / rt::T;
+  const long words = mtiles * K * W;
+  const bool x_in_place = (uintptr_t)x % 16 == 0 && kdim % 4 == 0;
+  const bool y_in_place = (uintptr_t)y % 16 == 0 && ny % 4 == 0;
+  const int ldy = y_in_place ? ny : (ny + 3) / 4 * 4;
+  float* tail = reinterpret_cast<float*>(scratch) + (words + 3) / 4 * 4;
+  float* xt = x_in_place || words == 0 ? nullptr : tail;
+  float* ypad = y_in_place ? nullptr
+                           : tail + (x_in_place ? 0 : mtiles * K * bk * 16);
+  if (words > 0x7fffffffL || (scratch == nullptr && (words > 0 || ypad)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ypad != nullptr && kdim > 0) {
+    const long total = (long)kdim * ldy / 4;
+    y_pad_kernel<<<(unsigned)min((total + 255) / 256, 8L * 1056), 256, 0,
+                   s>>>(y, kdim, ny, ypad, ldy, skip);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  FmaArgs a{x, ypad ? ypad : y, codes, reinterpret_cast<uint32_t*>(scratch),
+            xt, out, skip, m, kdim, ny, ldy, out_rows,
+            I, J, K, bm, bk, bn, W, row_warps, col_warps};
+  if (words > 0) {
+    x_words_kernel<<<(unsigned)((words + 7) / 8), 256, 0, s>>>(a, (int)words);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return warp_rows == 8 ? launch_fma<8>(a, s) : launch_fma<16>(a, s);
 }
 
 // bfloat16 route.  x (m, K*bk) and y (K*bk, J*bn) row-major bf16 with

@@ -8,9 +8,11 @@ tiles inside one (bm, bn) block, walk the k loop in order and read each
 step's primitive from ``codes`` on the device.  The product accumulates in
 float32.  Two routes, by the operands' type:
 
-* float32 (the GNN path): the first version on the FP32 FMA units, 64 x 64
-  CTAs, unchanged bit for bit (the writeback counts depend on its
-  rounding);
+* float32 (the GNN path): the FP32 FMA units; each warp walks its own
+  16 (or 8) rows x 16 columns through its block's codes, shaped from the
+  output on the host (:func:`fma_launch`); x's tile bitmasks are built in
+  the same C call and the operands read in place; each output rounds as
+  in the first version, bit for bit (the writeback counts depend on it);
 * bfloat16 (the LM's FFN): tensor cores (``mma.sync``), with the CTA tile
   and a split of the k-blocks chosen on the host from the rows that are
   really there (:func:`mma_launch`), partials added in a fixed order.
@@ -37,7 +39,7 @@ BLOCK_EDGES = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MMA_ROWS = (16, 32, 64, 128)    # CTA tile rows of the bf16 route
 MMA_COLS = 128                  # CTA tile columns at most
-H100_SMS = 132
+H100_SMS = build.H100_SMS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +97,73 @@ def mma_launch(m: int, I: int, J: int, K: int,
     return MmaLaunch(cta_m, cta_n, row_ctas, col_ctas, splits)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+@dataclasses.dataclass(frozen=True)
+class FmaLaunch:
+    """Launch shape of the float32 route: ``row_ctas`` x ``col_ctas`` CTAs
+    of ``row_warps`` x ``col_warps`` warps; each warp owns ``warp_rows``
+    rows and 16 columns and walks alone."""
+    warp_rows: int
+    row_warps: int
+    col_warps: int
+    row_ctas: int
+    col_ctas: int
+
+    @property
+    def cta_rows(self) -> int:
+        return self.warp_rows * self.row_warps
+
+    @property
+    def cta_cols(self) -> int:
+        return TILE * self.col_warps
+
+
+FMA_MAX_WARPS = 4              # warps per CTA
+
+
+@functools.lru_cache(maxsize=1024)
+def fma_launch(rows: int, J: int, block: Tuple[int, int, int],
+               sms: int = H100_SMS) -> Optional[FmaLaunch]:
+    """The float32 route's launch shape for ``rows`` output rows (the
+    padded grid's, or x's m when only those are stored) of a grid with
+    ``J`` column blocks, or None when there is nothing to write.
+
+    A warp owns 16 rows (8 when that leaves fewer than 4 warps per SM)
+    and 16 columns.  A CTA holds up to 4 warps, along the columns first
+    so that they read the same x rows; fewer when the CTAs would not fill
+    ``sms`` SMs (the warps walk alone, so the CTA only places them).
+    Each output belongs to one warp and the k loop is never split, so the
+    shape changes no output's bits.
+    """
+    _, _, bn = block
+    tiles = J * bn // TILE
+    if rows <= 0 or tiles <= 0:
+        return None
+    warp_rows = 16 if -(-rows // 16) * tiles >= 4 * sms else 8
+    row_units = -(-rows // warp_rows)
+    per_cta = FMA_MAX_WARPS
+    while True:
+        col_warps = min(per_cta, 1 << (tiles.bit_length() - 1))
+        row_warps = per_cta // col_warps
+        shape = FmaLaunch(warp_rows, row_warps, col_warps,
+                          -(-row_units // row_warps),
+                          -(-tiles // col_warps))
+        if per_cta == 1 or shape.row_ctas * shape.col_ctas >= sms:
+            return shape
+        per_cta //= 2
+
+
+def fma_scratch(m: int, K: int, bk: int, n: int, x_aligned: bool,
+                y_aligned: bool) -> Tuple[int, int, int]:
+    """4-byte words of the float32 route's scratch, in order: x's tile
+    bitmasks (one word per 16-row tile of x's m rows, k-block and 32 of
+    the k-block's 16-wide slices, so any ``bk`` works; rounded up to 16
+    bytes); room for x's nonzero 16 x 16 tiles when x's rows are not
+    16-byte aligned; y (``K * bk`` rows at most, ``n`` columns) padded to
+    rows of a multiple of 4 floats when its rows are not."""
+    tiles = -(-m // TILE)
+    words = tiles * K * -(-(bk // TILE) // 32)
+    x_tiles = 0 if x_aligned or not words else tiles * K * bk * TILE
+    return -(-words // 4) * 4, x_tiles, 0 if y_aligned else -(-n // 4) * 4
 
 
 def pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -207,29 +273,51 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
 
 
 def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows):
-    """The float32 route: the whole padded grid, FP32 FMAs."""
+    """The float32 route: x and y are not padded (the kernel reads what
+    lies past them as zeros); one C call builds x's tile bitmasks and
+    walks the grid, its scratch one allocation.  Operands whose rows are
+    not 16-byte aligned are staged once inside that call (x's nonzero
+    tiles, y padded), since unaligned rows cost the walk far more.  Only
+    x's m rows are computed and stored unless ``pad_rows`` (or a caller's
+    ``out``) asks for the padded grid."""
     global launches
     bm, bk, bn = block
     I, J, K = codes.shape
     m = x.shape[0]
-    xp = _pad_grid(x, I * bm, K * bk)
-    yp = _pad_grid(y, K * bk, J * bn)
-    build.require("block_matmul x", xp, torch.float32)
-    build.require("block_matmul y", yp, torch.float32)
-    out = _out(out, I * bm, J * bn, y.device, pad_rows)
-    build.require("block_matmul out", out, torch.float32)
-    if out.numel() == 0:
-        return out if pad_rows else out[:m]
-    occ_x = tile_occupancy(xp)
-    occ_y = tile_occupancy(yp)
-    fn = build.function("dispatch", "rt_dispatch", [ctypes.c_void_p] * 7
-                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    build.check(fn(xp.data_ptr(), yp.data_ptr(), codes.data_ptr(),
-                   occ_x.data_ptr(), occ_y.data_ptr(), out.data_ptr(),
+    x, y = x.contiguous(), y.contiguous()
+    out_rows = I * bm if pad_rows else m
+    if out is None:      # every element is written unless skip is set
+        out = (torch.empty if skip is None else torch.zeros)(
+            (out_rows, J * bn), dtype=torch.float32, device=y.device)
+    else:
+        out = _out(out, I * bm, J * bn, y.device, pad_rows)
+    for name, t in (("x", x), ("y", y), ("out", out)):
+        build.require(f"block_matmul {name}", t, torch.float32)
+    build.require_aligned("block_matmul out", out)
+    shape = fma_launch(out_rows, J, block, build.sm_count(y.device))
+    if shape is None:
+        return out
+    kdim, n = x.shape[1], y.shape[1]
+    words, x_tiles, y_cols = fma_scratch(
+        m, K, bk, n, x.data_ptr() % 16 == 0 and kdim % 4 == 0,
+        y.data_ptr() % 16 == 0 and n % 4 == 0)
+    size = words + x_tiles + kdim * y_cols
+    work = (torch.empty(size, dtype=torch.float32, device=y.device)
+            if size else None)
+    fn = build.function("dispatch", "rt_dispatch",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p])
+    build.check(fn(x.data_ptr(), m, kdim, y.data_ptr(), n,
+                   codes.data_ptr(), out.data_ptr(), out_rows,
+                   None if work is None else work.data_ptr(),
                    None if skip is None else skip.data_ptr(),
-                   I, J, K, bm, bk, bn, build.stream(y)), "dispatch")
+                   I, J, K, bm, bk, bn, shape.warp_rows, shape.row_warps,
+                   shape.col_warps, build.stream(y)), "dispatch")
     launches += 1
-    return out if pad_rows else out[:m]
+    return out
 
 
 def _block_matmul_mma(x, y, codes, block, out, skip, pad_rows):
@@ -244,7 +332,7 @@ def _block_matmul_mma(x, y, codes, block, out, skip, pad_rows):
     bm, bk, bn = block
     I, J, K = codes.shape
     m = x.shape[0]
-    shape = mma_launch(m, I, J, K, (bm, bk, bn), _sms(y.device))
+    shape = mma_launch(m, I, J, K, (bm, bk, bn), build.sm_count(y.device))
     xp = _pad_grid(x, m, K * bk)
     yp = _pad_grid(y, K * bk, J * bn)
     out_rows = I * bm if pad_rows else m

@@ -11,7 +11,7 @@ import torch
 import repro_torch.kernels as K
 from repro_torch.core import formats
 from repro_torch.core.perf_model import Primitive
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import build, dispatch, ops
 
 TOL = dict(atol=3e-4, rtol=3e-4)
 # bf16 dispatch vs its plain version: both sum the same exact bf16 products
@@ -55,8 +55,10 @@ def test_cuda_kernels_match_plain(cuda, density):
             dispatch.block_matmul(x, y, codes, block),
             dispatch.block_matmul_plain(x, y, codes, block), **TOL)
     launched = K.launch_counts()
+    # (the float32 dispatch flags x's tiles inside its own C call, so these
+    # products no longer launch tile_nnz; it has its own test below)
     assert all(launched[name] >= 1 for name in (
-        "gemm", "spdmm", "spmm", "csr_spmm", "dispatch", "tile_nnz"))
+        "gemm", "spdmm", "spmm", "csr_spmm", "dispatch"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -185,3 +187,94 @@ def test_dispatch_bf16_raises_on_misaligned_rows(cuda):
     codes = torch.ones((1, 1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         dispatch.block_matmul(x, y, codes, (64, 64, 64))
+
+
+@pytest.mark.parametrize("m,k,n,tile", [
+    (1552, 80, 1552, 128),    # wide: 13 x 13 CTAs of 128, the last overhang
+    (784, 48, 784, 16),       # 16 x 16: the 128 tile leaves too few CTAs
+    (3328, 112, 16, 16),      # an Update's 16-wide output
+    (16, 16, 16, 16),
+    (48, 0, 32, 16)])         # k = 0: zeros
+def test_gemm_tiles_match_plain(cuda, m, k, n, tile):
+    assert K.gemm.gemm_launch(m, n, build.sm_count(cuda)) == tile
+    x = sparse(15, m, k, 0.5, cuda)
+    y = sparse(16, k, n, 0.5, cuda)
+    K.reset_launch_counts()
+    got = K.gemm.gemm(x, y)
+    assert K.launch_counts()["gemm"] == 1
+    torch.testing.assert_close(got, K.gemm.gemm_plain(x, y), **TOL)
+    assert torch.equal(got, K.gemm.gemm(x, y))        # deterministic
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn", [(1552, 80, 1552, 64, 16),
+                                         (784, 48, 784, 128, 256),
+                                         (3328, 112, 16, 16, 16)])
+def test_gemm_equals_one_k_block_all_gemm_dispatch(cuda, m, k, n, bm, bn):
+    """One k-block makes each dispatch output one fmaf chain over k from
+    0, then 0 + chain: the gemm kernel's value bit for bit."""
+    x = sparse(17, m, k, 0.3, cuda)
+    y = sparse(18, k, n, 0.6, cuda)
+    codes = torch.ones((-(-m // bm), -(-n // bn), 1), dtype=torch.int32,
+                       device=cuda)
+    got = dispatch.block_matmul(x, y, codes, (bm, k, bn), pad_rows=False)
+    assert torch.equal(K.gemm.gemm(x, y), got[:, :n])
+
+
+def test_gemm_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros((32, 32), device=cuda)
+    with pytest.raises(ValueError):
+        K.gemm.gemm(x[:, :24], x[:24])                  # not multiples
+    flat = torch.zeros(1 + 32 * 32, device=cuda)
+    with pytest.raises(ValueError):                     # 4-byte offset
+        K.gemm.gemm(flat[1:].view(32, 32), x)
+
+
+@pytest.mark.parametrize("bk", [16, 48, 64, 528])
+@pytest.mark.parametrize("bm,bn", [(16, 16), (32, 64), (64, 16), (128, 32),
+                                   (256, 128), (16, 256), (256, 16)])
+def test_dispatch_f32_every_block_edge(cuda, bm, bk, bn):
+    """The float32 route against its plain version on random codes, with
+    x and y read in place (ragged, unaligned rows), padded and rows-only;
+    then the skip flag and a caller's out."""
+    x = sparse(19, 333, 537, 0.05, cuda)
+    y = sparse(20, 537, 301, 0.3, cuda)
+    shape = (-(-333 // bm), -(-301 // bn), -(-537 // bk))
+    g = torch.Generator(device=cuda)
+    g.manual_seed(bm + bk + bn)
+    codes = torch.randint(0, 4, shape, generator=g, dtype=torch.int32,
+                          device=cuda)
+    want = dispatch.block_matmul_plain(x, y, codes, (bm, bk, bn))
+    K.reset_launch_counts()
+    got = dispatch.block_matmul(x, y, codes, (bm, bk, bn))
+    assert K.launch_counts() == {**{n: 0 for n in K.KERNEL_MODULES},
+                                 "dispatch": 1}
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[333:].any()                  # padded rows are zeros
+    rows = dispatch.block_matmul(x, y, codes, (bm, bk, bn), pad_rows=False)
+    assert rows.shape == (333, got.shape[1]) and torch.equal(rows, got[:333])
+    out = torch.full_like(got, float("nan"))   # every element is written
+    dispatch.block_matmul(x, y, codes, (bm, bk, bn), out=out)
+    assert torch.equal(out, got)
+    kept = torch.full_like(got, 7.0)
+    flag = torch.ones((), dtype=torch.int32, device=cuda)
+    dispatch.block_matmul(x, y, codes, (bm, bk, bn), out=kept, skip=flag)
+    assert bool((kept == 7.0).all())
+    for fill in (0, 1):                         # all SKIP, all GEMM
+        c = torch.full_like(codes, fill)
+        torch.testing.assert_close(
+            dispatch.block_matmul(x, y, c, (bm, bk, bn)),
+            dispatch.block_matmul_plain(x, y, c, (bm, bk, bn)), **TOL)
+
+
+def test_dispatch_f32_spmm_skips_only_zero_tiles(cuda):
+    """SPMM and SPDMM give GEMM's value bit for bit when every skipped
+    tile is zero: skipping drops only exact zeros, and the partials of
+    each k-block add in the same order."""
+    x = sparse(21, 256, 320, 0.01, cuda)
+    y = sparse(22, 320, 128, 0.02, cuda)
+    block = (64, 64, 16)
+    shape = (4, 8, 5)
+    runs = [dispatch.block_matmul(
+        x, y, torch.full(shape, c, dtype=torch.int32, device=cuda), block)
+        for c in (1, 2, 3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
