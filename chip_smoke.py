@@ -26,9 +26,13 @@ bf16 operands run on the tensor-core routes of ``dispatch`` and
 integer ``tile_nnz``).  ``gemm`` is also timed at the 16-wide shapes the
 path launches, and must equal the float32 ``dispatch`` with all-GEMM codes
 and one k-block bit for bit; the float32 ``dispatch`` must equal its plain
-version bit for bit on the planner's grid.  The bf16 ``dispatch`` is timed on both FFN
-products (w1: 2048 -> 8192, w2: 8192 -> 2048) at prefill and decode
-shapes and checked at decode row counts 1, 4, 17 and 300.
+version bit for bit on the planner's grid; the block-sparse ``spdmm`` (on
+A_mean @ H0, an Update and A_mean @ H1) and ``spmm`` (A_mean x H0) must
+equal ``gemm`` bit for bit, and are timed beside the fastest single
+PyTorch call of the same product (``torch.sparse.mm`` of the operand in
+BSR or CSR, or dense ``torch.matmul``).  The bf16 ``dispatch`` is timed
+on both FFN products (w1: 2048 -> 8192, w2: 8192 -> 2048) at prefill and
+decode shapes and checked at decode row counts 1, 4, 17 and 300.
 
 Times come from CUDA events (kernels) and the host clock around
 synchronised work (paths).  Each path resets the kernels' launch counters
@@ -75,10 +79,11 @@ REF_SAGE_CI_HIST = [443182, 317, 84728, 198733]   # the JAX planner, CPU
 RECORDS: list = []
 
 
-def record(kind: str, **fields) -> None:
+def record(kind: str, **fields) -> dict:
     rec = {"record": kind, **fields}
     RECORDS.append(rec)
     print(json.dumps(rec), flush=True)
+    return rec
 
 
 def check(cond: bool, what: str) -> None:
@@ -174,7 +179,10 @@ def main() -> int:
 
     def kernel_entry(name, source, replaces, fn, plain, lib, work, ok_err,
                      tol=TOL, peak=PEAK_FP32, line=True, units="fma",
-                     line_name=None):
+                     line_name=None, lib_call=None, launches=None):
+        """Check, time and record one kernel.  ``launches`` is its count
+        on the main path where that has run; the kernels line's entries get
+        theirs when every path has run (None in their ``kernel`` record)."""
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -186,10 +194,13 @@ def main() -> int:
         b_ms, b_by = bound(flops, nbytes, peak)
         entry = {"name": name, "route": "cuda", "units": units,
                  "source": source,
-                 "replaces": replaces, "launches": 0, "max_abs_err": err,
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": err,
                  "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": None if lib is None else cuda_ms(torch, lib)}
+        if lib_call is not None:
+            entry["library_call"] = lib_call
         if line:      # under line_name, with the case it was timed on
             kernels_line[line_name or name] = (
                 {**entry, "name": line_name, "timed_on": name}
@@ -201,10 +212,13 @@ def main() -> int:
         # the record's route names the compute units (tensor-core mma, FP32
         # fma, or simt for integer work); the kernels line's route is the
         # language
-        record("kernel", **{**entry, "route": units},
-               device_ms=dev["device_busy_ms"],
-               device_ops=dev["top_device_ops"][:4],
-               flops=flops, bytes=nbytes, tol=tol, in_kernels_line=line)
+        return record("kernel", **{**entry, "route": units},
+                      device_ms=dev["device_busy_ms"],
+                      device_ops=dev["top_device_ops"][:4],
+                      profile_windows=dev["windows"],
+                      profile_complete=dev["complete"],
+                      flops=flops, bytes=nbytes, tol=tol,
+                      in_kernels_line=line)
 
     def small_checks(name, fn_pairs, tol=TOL):
         for label, fn, plain in fn_pairs:
@@ -276,20 +290,54 @@ def main() -> int:
          lambda: K.gemm.gemm_plain(Ap[:16, :16], Hp[:16, :16]))])
 
     # spdmm: the s1/s2 strategies' Aggregate product over Block-CSR(A)
+    # (the wide route), then (after the main path, which counts their
+    # launches) the narrow products s2 also runs over Block-CSR: an Update,
+    # Block-CSR(H0) @ W, and A_mean @ H1 (the warp route).  The library
+    # yardstick is the fastest single PyTorch call of the same product.
+    def sparse_library(label, x, y):
+        """The fastest of ``torch.sparse.mm`` of ``x`` in 16 x 16 BSR, of
+        ``x`` in CSR, and dense ``torch.matmul``, by ``y``: its function and
+        name.  Every candidate's time (None where refused) is recorded."""
+        layouts = (("torch.sparse.mm(to_sparse_bsr((16, 16)))",
+                    torch.sparse.mm, lambda: x.to_sparse_bsr((16, 16))),
+                   ("torch.sparse.mm(to_sparse_csr())", torch.sparse.mm,
+                    x.to_sparse_csr),
+                   ("torch.matmul(dense)", torch.matmul, lambda: x))
+        fns, times = {}, {}
+        for call, op, layout in layouts:
+            try:
+                fns[call] = lambda op=op, xs=layout(): op(xs, y)
+                times[call] = cuda_ms(torch, fns[call])
+            except (RuntimeError, NotImplementedError) as e:
+                times[call] = None
+                record("library_refused", case=label, call=call,
+                       error=str(e)[:200])
+        best = min((t, c) for c, t in times.items() if t is not None)[1]
+        record("library_calls", case=label, ms=times, fastest=best)
+        return fns[best], best
+
+    def spdmm_work(b, n):
+        """(flops, bytes) of Block-CSR ``b`` @ a dense (Kb*tk, n): the
+        nonzero tiles' FMAs; their payload, indices and the y rows they
+        select read once, the output written once."""
+        tm, tk = b.tile
+        nz = int(b.counts.sum())
+        valid = (torch.arange(b.col_idx.shape[1], device=dev)[None, :]
+                 < b.counts[:, None])
+        used = int(torch.unique(b.col_idx[valid]).numel())
+        rows = b.col_idx.shape[0] * tm
+        return (2.0 * nz * tm * tk * n,
+                4.0 * (nz * tm * tk + nz + b.counts.numel() + used * tk * n
+                       + rows * n))
+
     xb = formats.dense_to_bcsr(Ap, (16, 16))
     nzt = int(xb.counts.sum())
-    used_rows = int(torch.unique(xb.col_idx[
-        torch.arange(xb.col_idx.shape[1], device=dev)[None, :]
-        < xb.counts[:, None]]).numel())
+    sp_lib, sp_call = sparse_library("A @ H0", Ap, Hp)
     kernel_entry(
         "spdmm", "src/repro_torch/kernels/csrc/spdmm.cu",
         "src/repro/kernels/spdmm.py:50",
         lambda: K.spdmm.spdmm(xb, Hp), lambda: K.spdmm.spdmm_plain(xb, Hp),
-        dense_lib,
-        (2.0 * nzt * 16 * 16 * nn,
-         4.0 * (nzt * 256 + nzt + xb.counts.numel() + used_rows * 16 * nn
-                + mm * nn)),
-        lambda g, w: True)
+        sp_lib, spdmm_work(xb, nn), lambda g, w: True, lib_call=sp_call)
     hb = formats.dense_to_bcsr(Hp, (16, 16))
     zb = formats.dense_to_bcsr(torch.zeros_like(Ap), (16, 16))
     small_checks("spdmm", [
@@ -319,11 +367,29 @@ def main() -> int:
         "spmm", "src/repro_torch/kernels/csrc/spmm.cu",
         "src/repro/kernels/spmm.py:110",
         lambda: K.spmm.spmm(xb, yb, plan),
-        lambda: K.spmm.spmm_plain(xb, yb, plan), dense_lib,
+        lambda: K.spmm.spmm_plain(xb, yb, plan), sp_lib,
         (2.0 * steps * 16 ** 3,
          4.0 * (nzt * 256 + int(yb.counts.sum()) * 256 + 2 * steps
                 + plan.counts.numel() + mm * nn)),
-        lambda g, w: True)
+        lambda g, w: True, lib_call=sp_call)
+    # each output of spdmm and spmm is one fmaf chain over the nonzero
+    # tiles (pairs), k ascending, from 0: gemm's value bit for bit
+    for label, got_fn, want_fn in (
+            ("spdmm A @ H0", lambda: K.spdmm.spdmm(xb, Hp),
+             lambda: K.gemm.gemm(Ap, Hp)),
+            ("spmm A x H0", lambda: K.spmm.spmm(xb, yb, plan),
+             lambda: K.gemm.gemm(Ap, Hp)),
+            ("spdmm update Block-CSR(Hp) @ W1p",
+             lambda: K.spdmm.spdmm(hb, W1p), lambda: K.gemm.gemm(Hp, W1p)),
+            ("spdmm A @ H1", lambda: K.spdmm.spdmm(xb, H1p),
+             lambda: K.gemm.gemm(Ap, H1p))):
+        got_s, got_g = got_fn(), want_fn()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got_s, got_g))
+        record("sparse_vs_gemm", case=label, bitwise=same,
+               max_abs_diff=float((got_s - got_g).abs().max()))
+        check(same, f"{label}: not bitwise equal to gemm")
+    del got_s, got_g
     zc = formats.dense_to_bcsc(torch.zeros_like(Hp), (16, 16))
     zplan = K.spmm.plan_intersection(xb, zc)
     small_checks("spmm", [
@@ -442,8 +508,24 @@ def main() -> int:
     env, frep = fused.run(sage.compiled, sage.tensors)
     torch.cuda.synchronize()
     main_counts = K.launch_counts()
+    spdmm_shapes = dict(K.spdmm.launches_by_shape)
     record("main_path_launches", model="sage", dataset="CI",
-           counts=main_counts)
+           counts=main_counts,
+           spdmm_by_shape=[[*k_, v] for k_, v in spdmm_shapes.items()])
+    # the narrow spdmm products, each with its launches on the main path
+    for label, b_, x_, y_ in (("update Block-CSR(Hp) @ W1p", hb, Hp, W1p),
+                              ("A @ H1", xb, Ap, H1p)):
+        name = f"spdmm ({label})"
+        n_ = spdmm_shapes.get((x_.shape[0], x_.shape[1], y_.shape[1]), 0)
+        check(n_ > 0, f"main path never ran {name}")
+        lib_, call_ = sparse_library(label, x_, y_)
+        kernel_entry(
+            name, "src/repro_torch/kernels/csrc/spdmm.cu",
+            "src/repro/kernels/spdmm.py:50",
+            lambda b_=b_, y_=y_: K.spdmm.spdmm(b_, y_),
+            lambda b_=b_, y_=y_: K.spdmm.spdmm_plain(b_, y_), lib_,
+            spdmm_work(b_, y_.shape[1]), lambda g, w: True, line=False,
+            lib_call=call_, launches=n_)
     for name in ("dispatch", "gemm", "spdmm"):
         check(main_counts[name] > 0, f"main path never launched {name}")
     for strategy, out in outs.items():
@@ -557,6 +639,11 @@ def main() -> int:
     record("profile", engine="fused", collect_report=False, card=card,
            **profile_device(torch, lambda: fx.run(sage.compiled,
                                                   sage.tensors)))
+    # the s2 (AWB-GCN) strategy per kernel: its six spdmm launches beside
+    # the Block-CSR conversions (dense_to_bcsr) that feed them
+    s2 = runtime.DynasparseEngine(strategy="s2")
+    record("profile", engine="per-kernel", strategy="s2", card=card,
+           **profile_device(torch, lambda: sage.run(s2)))
 
     # ---------------- phases 7-9: the LM paths (llama3.2-1b) --------------
     lm_counts = lm_paths(torch, np, K, dev, card, A, kernel_entry,
@@ -727,6 +814,25 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
     record("flash_vs_library",
            max_abs_err=float((ops.flash_attention(q, k, v, causal=True)
                               .float() - lib().float()).abs().max()))
+    # the float32 route (FMA units) at the scoring shape, beside SDPA in
+    # float32; only checks and tests use it
+    q32, k32, v32 = (t_.float() for t_ in (q, k, v))
+    kr32 = k32.repeat_interleave(h // hkv, 1)
+    vr32 = v32.repeat_interleave(h // hkv, 1)
+    kernel_entry(
+        "flash_attention (float32)",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:75",
+        lambda: ops.flash_attention(q32, k32, v32, causal=True),
+        lambda: K.flash_attention.flash_attention_plain(
+            q32, k32, v32, causal=True, bq=min(128, SCORE_SEQ),
+            bk=min(128, SCORE_SEQ)),
+        lambda: F.scaled_dot_product_attention(q32, kr32, vr32,
+                                               is_causal=True),
+        (4.0 * hd * pairs, 4.0 * (2 * q.numel() + k.numel() + v.numel())),
+        lambda g, w: True, line=False,
+        lib_call="scaled_dot_product_attention (float32, kv repeated)")
+    del q32, k32, v32, kr32, vr32
     # the reference's edge semantics, on the float32 (FMA) route at 3e-4
     # and on the bf16 (tensor-core) route at the bf16 tolerance
     for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
@@ -992,20 +1098,26 @@ def wall_ms(torch, fn, n: int = 5) -> float:
     return statistics.median(ts)
 
 
+SENTINELS = 4         # spin kernels opening each profiler window
+WINDOWS = 4           # profiler windows taken at most, until one is whole
+
+
 def profile_device(torch, fn, n: int = 3) -> dict:
     """Device busy time and the top device ops of ``fn``, from
     ``torch.profiler`` over ``n`` calls after a warm-up call (the
-    profiler's own overhead is in ``wall_ms_profiled``)."""
+    profiler's own overhead is in ``wall_ms_profiled``).
+
+    On the H100 the profiler sometimes drops the first device events of
+    a window (a kernel then counts 0.4 or 0.8 launches a call), and no
+    margin of time before the calls keeps them.  So each window starts
+    with ``SENTINELS`` short spin kernels, left out of the counts.  Every
+    call launches a whole number of each kernel, so a window whose counts
+    are not multiples of ``n`` still lost events: it is taken again, up
+    to ``WINDOWS`` times.  When none is whole, ``complete`` is False and
+    the device numbers read "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / n
 
     def dev_ms(e):
         us = getattr(e, "self_device_time_total", None)
@@ -1013,16 +1125,35 @@ def profile_device(torch, fn, n: int = 3) -> dict:
             us = getattr(e, "self_cuda_time_total", 0.0)
         return us / 1e3 / n
 
-    # device-side events only: an aten op's own row repeats the time of
-    # the kernels it launched
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-              and dev_ms(e) > 0]
+    for window in range(1, WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / n
+        # device-side events only: an aten op's own row repeats the time
+        # of the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA and dev_ms(e) > 0
+                  and "spin_kernel" not in e.key]
+        complete = bool(events) and all(e.count % n == 0 for e in events)
+        if complete:
+            break
+    if not complete:
+        return {"wall_ms_profiled": wall_ms, "device_busy_ms": "not measured",
+                "idle_share": "not measured", "windows": window,
+                "complete": False, "top_device_ops": []}
     busy = sum(dev_ms(e) for e in events)
     top = sorted(events, key=dev_ms, reverse=True)[:10]
-    return {"wall_ms_profiled": wall_ms,
-            "device_busy_ms": busy if events else "not measured",
-            "idle_share": 1.0 - busy / wall_ms if events else "not measured",
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "windows": window,
+            "complete": True,
             "top_device_ops": [[e.key[:80], dev_ms(e), e.count / n]
                                for e in top]}
 

@@ -24,3 +24,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+    spdmm.launches_by_shape.clear()

@@ -5,20 +5,39 @@ Port of ``repro.kernels.spmm`` (the Pallas kernel at
 ``:38``).  A reduction step k contributes to output tile (i, j) only when
 both X[i, k] and Y[k, j] tiles are nonzero; :func:`plan_intersection`
 compacts those steps into slot lists with device-side torch ops, and the
-CUDA kernel ``csrc/spmm.cu`` walks exactly ``counts[i, j]`` of them.
+CUDA kernel ``csrc/spmm.cu`` walks exactly ``counts[i, j]`` of them: a warp
+per 16 (or 8) rows x 16 columns of an output tile (:func:`spmm_launch`),
+tile-rows longest first (``spdmm.row_order_plain`` of x's tile counts,
+ranked on the device in the same C call).  Each output is one FMA chain
+over its slot pairs in order, k ascending, from 0: the dense ``gemm``'s
+value bit for bit.
 :func:`spmm_plain` is the plain PyTorch version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.formats import BlockCSCMatrix, BlockCSRMatrix
 from repro_torch.kernels import build
+from repro_torch.kernels.spdmm import SparseLaunch, warp_launch
 
 launches = 0
+MAX_WARPS = 8          # warps per CTA: neighbouring tiles of one tile-row
+
+
+@functools.lru_cache(maxsize=1024)
+def spmm_launch(rows: int, n: int,
+                sms: int = build.H100_SMS) -> Optional[SparseLaunch]:
+    """The spmm kernel's launch shape for a ``rows`` x ``n`` output
+    (multiples of 16), or None when there is nothing to write: a warp per
+    16 (or 8) rows x 16 columns, up to 8 warps a CTA along the columns.
+    Each output belongs to one warp and its pairs are never split, so the
+    shape changes no output's bits."""
+    return warp_launch(rows, n, MAX_WARPS, sms)
 
 
 class IntersectionPlan(NamedTuple):
@@ -105,7 +124,8 @@ def spmm(x: BlockCSRMatrix, y: BlockCSCMatrix,
          plan: IntersectionPlan) -> torch.Tensor:
     """``dense(x) @ dense(y)`` skipping every tile pair with an empty side;
     returns the tile-padded ``(Mb*tm, Nb*tn)`` product.  On CUDA the tile
-    edges must be multiples of 16 and the payloads float32."""
+    edges must be multiples of 16 and the payloads float32 and 16-byte
+    aligned."""
     if not y.blocks.is_cuda:
         return spmm_plain(x, y, plan)
     global launches
@@ -120,16 +140,23 @@ def spmm(x: BlockCSRMatrix, y: BlockCSCMatrix,
         build.require(f"spmm {name}", t, torch.int32)
     build.require("spmm x blocks", x.blocks, torch.float32)
     build.require("spmm y blocks", y.blocks, torch.float32)
+    build.require("spmm x counts", x.counts, torch.int32)
+    build.require_aligned("spmm x blocks", x.blocks)
+    build.require_aligned("spmm y blocks", y.blocks)
     out = torch.empty((mb * tm, nb * tn), dtype=torch.float32,
                       device=y.blocks.device)
     if out.numel() == 0:
         return out
-    fn = build.function("spmm", "rt_spmm", [ctypes.c_void_p] * 6
-                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    shape = spmm_launch(mb * tm, nb * tn, build.sm_count(out.device))
+    order = torch.empty_like(x.counts)      # ranked in the same C call
+    fn = build.function("spmm", "rt_spmm", [ctypes.c_void_p] * 8
+                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     build.check(fn(plan.xpos.data_ptr(), plan.ypos.data_ptr(),
                    plan.counts.data_ptr(), x.blocks.data_ptr(),
-                   y.blocks.data_ptr(), out.data_ptr(), mb, nb, plan.smax,
-                   x.blocks.shape[1], y.blocks.shape[1], tm, tk, tn,
+                   y.blocks.data_ptr(), x.counts.data_ptr(),
+                   order.data_ptr(), out.data_ptr(),
+                   mb, nb, plan.smax, x.blocks.shape[1], y.blocks.shape[1],
+                   tm, tk, tn, shape.unit_rows, shape.per_cta,
                    build.stream(out)), "spmm")
     launches += 1
     return out

@@ -278,3 +278,112 @@ def test_dispatch_f32_spmm_skips_only_zero_tiles(cuda):
         x, y, torch.full(shape, c, dtype=torch.int32, device=cuda), block)
         for c in (1, 2, 3)]
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+# tile-row counts of the "ordered" case: empty and full first, then
+# descending, tied and ascending (the kernels rank rows on the device,
+# longest first)
+ORDER_COUNTS = [0, 9, *range(9, 0, -1), *[5] * 10, *range(10), *[9] * 4]
+
+
+def tile_sparse(seed, mb, kb, tile, device, occ="random"):
+    """(mb * tm, kb * tk) float32 whose nonzero tiles hold about half
+    nonzero elements: tile-row 0 empty, tile-row 1 full (its count equals
+    smax = kb), about a third of the other tiles nonzero ("random");
+    no tile nonzero ("empty"); or ORDER_COUNTS[i] tiles in tile-row i
+    ("ordered", mb = len(ORDER_COUNTS))."""
+    tm, tk = tile
+    rng = np.random.default_rng(seed)
+    if occ == "ordered":
+        nz = np.zeros((mb, kb), dtype=bool)
+        for i, c in enumerate(ORDER_COUNTS):
+            nz[i, rng.permutation(kb)[:c]] = True
+    else:
+        nz = rng.random((mb, kb)) < 0.3
+        nz[0], nz[1] = False, True
+        nz &= occ != "empty"
+    vals = rng.normal(size=(mb * tm, kb * tk)).astype(np.float32)
+    vals *= rng.random(vals.shape) < 0.5
+    mask = np.repeat(np.repeat(nz, tm, axis=0), tk, axis=1)
+    return torch.from_numpy(vals * mask).to(device)
+
+
+def poison(shape, device):
+    """Leave NaN in the allocator's cache where the next output of
+    ``shape`` is placed, so a row the kernel does not write shows."""
+    torch.full(shape, float("nan"), device=device)
+
+
+# n: the Updates' 16-wide output, three warp columns, a wide output with a
+# partial 128-column strip, and H0's padded width
+@pytest.mark.parametrize("n", [16, 48, 400, 3712])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32)])
+@pytest.mark.parametrize("occ", ["random", "empty", "ordered"])
+def test_spdmm_equals_gemm_bitwise(cuda, n, tile, occ):
+    """Each output is one fmaf chain over the nonzero tiles, k ascending,
+    from 0: the dense gemm's value bit for bit (skipped tiles are zero),
+    every row written once whatever order the device ranks."""
+    tm, tk = tile
+    mb, kb = (len(ORDER_COUNTS) if occ == "ordered" else 12), 9
+    x = tile_sparse(23, mb, kb, tile, cuda, occ)
+    y = sparse(24, kb * tk, n, 0.5, cuda)
+    xb = formats.dense_to_bcsr(x, tile)
+    assert int(xb.counts.max()) == (0 if occ == "empty" else kb)
+    if occ == "ordered":
+        assert xb.counts.tolist() == ORDER_COUNTS
+    K.reset_launch_counts()
+    poison((mb * tm, n), cuda)
+    got = K.spdmm.spdmm(xb, y)
+    assert K.launch_counts()["spdmm"] == 1
+    assert K.spdmm.spdmm_launch(mb * tm, n, build.sm_count(cuda)).wide == (
+        n >= 128)
+    assert torch.equal(got, K.gemm.gemm(x, y))
+    torch.testing.assert_close(got, K.spdmm.spdmm_plain(xb, y), **TOL)
+    assert not got[:tm].any()                   # the empty tile-row
+
+
+@pytest.mark.parametrize("n", [16, 48, 400, 3712])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32)])
+@pytest.mark.parametrize("occ", ["random", "empty", "ordered"])
+def test_spmm_equals_gemm_bitwise(cuda, n, tile, occ):
+    """The intersection walk skips only pairs with a zero side: the dense
+    gemm's value bit for bit, every row written once."""
+    tm, tk = tile
+    mb, kb = (len(ORDER_COUNTS) if occ == "ordered" else 12), 9
+    x = tile_sparse(25, mb, kb, tile, cuda, occ)
+    nb = -(-n // tk)
+    y = tile_sparse(26, kb, nb, (tk, tk), cuda)       # y's tile-row 0 empty
+    yb = formats.dense_to_bcsc(y, (tk, tk))
+    xb = formats.dense_to_bcsr(x, tile)
+    plan = K.spmm.plan_intersection(xb, yb)
+    K.reset_launch_counts()
+    poison((mb * tm, nb * tk), cuda)
+    got = K.spmm.spmm(xb, yb, plan)
+    assert K.launch_counts()["spmm"] == 1
+    assert torch.equal(got, K.gemm.gemm(x, y))
+    torch.testing.assert_close(got, K.spmm.spmm_plain(xb, yb, plan), **TOL)
+
+
+def test_sparse_kernels_raise_on_what_they_do_not_take(cuda):
+    x = tile_sparse(27, 4, 3, (16, 16), cuda)
+    y = sparse(28, 48, 32, 0.5, cuda)
+    xb = formats.dense_to_bcsr(x, (16, 16))
+    yb = formats.dense_to_bcsc(y, (16, 16))
+    plan = K.spmm.plan_intersection(xb, yb)
+    flat = torch.zeros(1 + y.numel(), device=cuda)
+    odd_y = flat[1:].view(y.shape)                       # 4-byte offset
+    bflat = torch.zeros(1 + xb.blocks.numel(), device=cuda)
+    odd_x = formats.BlockCSRMatrix(xb.col_idx, xb.counts,
+                                   bflat[1:].view(xb.blocks.shape),
+                                   xb.shape, xb.tile)
+    for bad in (lambda: K.spdmm.spdmm(xb, y.double()),   # dtypes
+                lambda: K.spdmm.spdmm(formats.dense_to_bcsr(
+                    x.bfloat16(), (16, 16)), y),
+                lambda: K.spdmm.spdmm(xb, y[:, :24].contiguous()),  # n % 16
+                lambda: K.spdmm.spdmm(xb, odd_y),         # misaligned
+                lambda: K.spdmm.spdmm(odd_x, y),
+                lambda: K.spmm.spmm(xb, yb, K.spmm.IntersectionPlan(
+                    plan.xpos.long(), plan.ypos, plan.counts)),
+                lambda: K.spmm.spmm(odd_x, yb, plan)):
+        with pytest.raises(ValueError):
+            bad()
