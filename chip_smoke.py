@@ -30,9 +30,18 @@ version bit for bit on the planner's grid; the block-sparse ``spdmm`` (on
 A_mean @ H0, an Update and A_mean @ H1) and ``spmm`` (A_mean x H0) must
 equal ``gemm`` bit for bit, and are timed beside the fastest single
 PyTorch call of the same product (``torch.sparse.mm`` of the operand in
-BSR or CSR, or dense ``torch.matmul``).  The bf16 ``dispatch`` is timed
-on both FFN products (w1: 2048 -> 8192, w2: 8192 -> 2048) at prefill and
-decode shapes and checked at decode row counts 1, 4, 17 and 300.
+BSR or CSR, or dense ``torch.matmul``).  The row-CSR ``csr_spmm`` (ELL of
+A_mean at rmax 576) must equal ``gemm`` bit for bit at both Aggregate
+shapes of the CSR phase (N1 @ H0, N2 @ H1) and is timed at both, beside
+the same library calls and CSR ``torch.sparse.mm`` of the operands padded
+to 16-multiples; it is also checked in bf16, on a 600-slot row at widths
+1, 17 and 3703, with ``run`` = 0 and into a wider buffer.  The bf16
+static strategies (``gemm``/``s1``/``s2``) and the bf16 CSR route run
+through ``dynasparse_matmul`` on the card, held against the plain route;
+one format-aware SAGE inference is profiled per kernel and fused.  The
+bf16 ``dispatch`` is timed on both FFN products (w1: 2048 -> 8192, w2:
+8192 -> 2048) at prefill and decode shapes and checked at decode row
+counts 1, 4, 17 and 300.
 
 Times come from CUDA events (kernels) and the host clock around
 synchronised work (paths).  Each path resets the kernels' launch counters
@@ -127,7 +136,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import repro_torch.kernels as K
-    from repro_torch.core import analyzer, formats, profiler, runtime
+    from repro_torch.core import (analyzer, dynasparse, formats, profiler,
+                                  runtime)
+    from repro_torch.core.ir import KernelType
     from repro_torch.core.perf_model import (Format, FPGACostModel,
                                              Primitive, TPUCostModel)
     from repro_torch.kernels import build, ops
@@ -294,21 +305,28 @@ def main() -> int:
     # launches) the narrow products s2 also runs over Block-CSR: an Update,
     # Block-CSR(H0) @ W, and A_mean @ H1 (the warp route).  The library
     # yardstick is the fastest single PyTorch call of the same product.
-    def sparse_library(label, x, y):
+    def sparse_library(label, x, y, padded=None):
         """The fastest of ``torch.sparse.mm`` of ``x`` in 16 x 16 BSR, of
-        ``x`` in CSR, and dense ``torch.matmul``, by ``y``: its function and
-        name.  Every candidate's time (None where refused) is recorded."""
-        layouts = (("torch.sparse.mm(to_sparse_bsr((16, 16)))",
-                    torch.sparse.mm, lambda: x.to_sparse_bsr((16, 16))),
+        ``x`` in CSR, and dense ``torch.matmul``, by ``y`` (and, given
+        ``padded = (xp, yp)``, CSR ``torch.sparse.mm`` of the operands
+        padded to 16-multiples): its function and name.  Every candidate's
+        time (None where refused) is recorded."""
+        layouts = [("torch.sparse.mm(to_sparse_bsr((16, 16)))",
+                    torch.sparse.mm, lambda: x.to_sparse_bsr((16, 16)), y),
                    ("torch.sparse.mm(to_sparse_csr())", torch.sparse.mm,
-                    x.to_sparse_csr),
-                   ("torch.matmul(dense)", torch.matmul, lambda: x))
+                    x.to_sparse_csr, y),
+                   ("torch.matmul(dense)", torch.matmul, lambda: x, y)]
+        if padded is not None:
+            layouts.append(("torch.sparse.mm(to_sparse_csr()), padded "
+                            f"{tuple(padded[0].shape)} x "
+                            f"{tuple(padded[1].shape)}", torch.sparse.mm,
+                            padded[0].to_sparse_csr, padded[1]))
         fns, times = {}, {}
-        for call, op, layout in layouts:
+        for call, op, layout, rhs in layouts:
             try:
-                fns[call] = lambda op=op, xs=layout(): op(xs, y)
+                fns[call] = lambda op=op, xs=layout(), rhs=rhs: op(xs, rhs)
                 times[call] = cuda_ms(torch, fns[call])
-            except (RuntimeError, NotImplementedError) as e:
+            except (RuntimeError, NotImplementedError, ValueError) as e:
                 times[call] = None
                 record("library_refused", case=label, call=call,
                        error=str(e)[:200])
@@ -406,25 +424,65 @@ def main() -> int:
     nnz = int(capped.sum())
     valid = torch.arange(rmax, device=dev)[None, :] < capped[:, None]
     uniq = int(torch.unique(ell.cols[valid]).numel())
-    n_out = H0.shape[1]
-    a_csr = A.to_sparse_csr()
-    kernel_entry(
-        "csr_spmm", "src/repro_torch/kernels/csrc/csr_spmm.cu",
-        "src/repro/kernels/csr_spmm.py:43",
-        lambda: K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, H0),
-        lambda: K.csr_spmm.csr_spmm_plain(ell.values, ell.cols,
-                                          ell.row_counts, H0),
-        lambda: torch.sparse.mm(a_csr, H0),
-        (2.0 * nnz * n_out,
-         8.0 * nnz + 4.0 * (A.shape[0] + uniq * n_out + A.shape[0] * n_out)),
-        lambda g, w: True)
+    H1c = H1.contiguous()                       # (3327, 16), N2's input
+    # each output is one fmaf chain over its row's slots (ascending
+    # columns) from 0: gemm's value bit for bit, at N1 and N2
+    for label, y_, yp_ in (("N1 ELL(A) @ H0", H0, Hp),
+                           ("N2 ELL(A) @ H1", H1c, H1p)):
+        got_c = K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, y_)
+        got_g = K.gemm.gemm(Ap, yp_)[:A.shape[0], :y_.shape[1]]
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got_c, got_g))
+        record("csr_vs_gemm", case=label, rmax=rmax, bitwise=same,
+               max_abs_diff=float((got_c - got_g).abs().max()))
+        check(same, f"csr_spmm {label}: not bitwise equal to gemm")
+    del got_c, got_g
     z_ell = formats.dense_to_ell(torch.zeros_like(A), 0)
     narrow = H0[:, :16].contiguous()          # the second Aggregate's width
+    # a row of 600 slots beside 1 % rows, at odd widths
+    hrng = np.random.default_rng(5)
+    hub = torch.from_numpy(hrng.normal(size=(700, 1500)).astype(np.float32))
+    hmask = torch.from_numpy(hrng.random((700, 1500)) < 0.01)
+    hmask[5] = False
+    hmask[5, torch.from_numpy(hrng.permutation(1500)[:600])] = True
+    hub = (hub * hmask).to(dev)
+    h_ell = formats.dense_to_ell(hub, 640)
+    hy = torch.from_numpy(hrng.normal(size=(1500, 3703)).astype(
+        np.float32)).to(dev)
+    ell_b = formats.ELLMatrix(ell.values.bfloat16(), ell.cols,
+                              ell.row_counts, ell.shape)
+    kept = torch.full((A.shape[0], 16), 7.0, device=dev)
+    off = torch.zeros((), dtype=torch.int32, device=dev)
+    wide = torch.zeros((A.shape[0] + 8, 40), device=dev)
+
+    def csr_k(e, y_, **kw):
+        return K.csr_spmm.csr_spmm(e.values, e.cols, e.row_counts, y_, **kw)
+
+    def csr_p(e, y_, **kw):
+        return K.csr_spmm.csr_spmm_plain(e.values, e.cols, e.row_counts, y_,
+                                         **kw)
+
     small_checks("csr_spmm", [
         ("ELL(A) x (3327, 16)", lambda: ops.csr_spmm(A, narrow, rmax=rmax),
          lambda: A @ narrow),
         ("rmax 0", lambda: ops.csr_spmm(z_ell, narrow),
-         lambda: torch.zeros((A.shape[0], 16), device=dev))])
+         lambda: torch.zeros((A.shape[0], 16), device=dev)),
+        *[(f"600-slot row, width {w}", lambda w=w: csr_k(h_ell, hy[:, :w]
+                                                          .contiguous()),
+           lambda w=w: csr_p(h_ell, hy[:, :w].contiguous()))
+          for w in (1, 17, 3703)],
+        ("run = 0 leaves out", lambda: csr_k(ell, narrow, out=kept, run=off),
+         lambda: torch.full((A.shape[0], 16), 7.0, device=dev)),
+        ("ldo 40 > n 16", lambda: csr_k(ell, narrow, out=wide)[
+            :A.shape[0], :16], lambda: csr_p(ell, narrow))])
+    small_checks("csr_spmm", [
+        ("bf16 ELL(A) @ H0", lambda: csr_k(ell_b, H0.bfloat16()),
+         lambda: csr_p(ell_b, H0.bfloat16())),
+        ("bf16 ELL(A) @ H1", lambda: csr_k(ell_b, H1c.bfloat16()),
+         lambda: csr_p(ell_b, H1c.bfloat16()))], tol=BF16_TOL)
+    check(not wide[:, 16:].any() and not wide[A.shape[0]:].any(),
+          "csr_spmm wrote outside [:m, :n] of a wider buffer")
+    del hub, hy, ell_b, wide
 
     # dispatch: random code grids at the main path's block shapes, then the
     # planner's own grid for the first Aggregate (timed)
@@ -570,7 +628,9 @@ def main() -> int:
     env_csr, _ = fused_csr.run(sage.compiled, sage.tensors)
     torch.cuda.synchronize()
     csr_counts = K.launch_counts()
-    record("csr_path_launches", counts=csr_counts)
+    csr_shapes = dict(K.csr_spmm.launches_by_shape)
+    record("csr_path_launches", counts=csr_counts,
+           csr_spmm_by_shape=[[*k_, v] for k_, v in csr_shapes.items()])
     check(csr_counts["csr_spmm"] > 0, "CSR path never launched csr_spmm")
     fmts = {k: int(v) for k, v in eng.planned_formats.items()}
     check(fmts["N1"] == Format.CSR and fmts["N2"] == Format.CSR,
@@ -584,6 +644,82 @@ def main() -> int:
            fused_formats={k: int(v) for k, v in
                           fused_csr.planned_formats.items()},
            max_abs_err_vs_block_path=err, fused_bitwise_per_kernel=True)
+    # csr_spmm at its two shapes of the CSR phase, N1 (ELL(A) @ H0, in the
+    # kernels line) and N2 (ELL(A) @ H1, 16 wide)
+    for label, y_, yp_, line in (("N1 ELL(A) @ H0", H0, Hp, True),
+                                 ("N2 ELL(A) @ H1", H1c, H1p, False)):
+        n_ = csr_shapes.get((A.shape[0], y_.shape[1]), 0)
+        check(n_ > 0, f"CSR phase never ran csr_spmm {label}")
+        lib_, call_ = sparse_library(f"csr_spmm {label}", A, y_,
+                                     padded=(Ap, yp_))
+        w_ = y_.shape[1]
+        kernel_entry(
+            "csr_spmm" if line else f"csr_spmm ({label})",
+            "src/repro_torch/kernels/csrc/csr_spmm.cu",
+            "src/repro/kernels/csr_spmm.py:43",
+            lambda y_=y_: csr_k(ell, y_), lambda y_=y_: csr_p(ell, y_), lib_,
+            (2.0 * nnz * w_,
+             8.0 * nnz + 4.0 * (A.shape[0] + uniq * w_ + A.shape[0] * w_)),
+            lambda g, w: True, line=line, lib_call=call_, launches=n_)
+    # why CSR torch.sparse.mm runs faster on the padded operands: the same
+    # call with only y's rows padded to 16-byte multiples (3712 columns)
+    a_csr, ap_csr = A.to_sparse_csr(), Ap.to_sparse_csr()
+    h_cols = K.dispatch.pad_to(H0, 1, 16).contiguous()
+    record("csr_library_alignment", card=card, ms={
+        "A (3327, 3327) @ H0 (3327, 3703)": cuda_ms(
+            torch, lambda: torch.sparse.mm(a_csr, H0)),
+        "A (3327, 3327) @ H0 columns padded (3327, 3712)": cuda_ms(
+            torch, lambda: torch.sparse.mm(a_csr, h_cols)),
+        "A padded (3328, 3328) @ H0 padded (3328, 3712)": cuda_ms(
+            torch, lambda: torch.sparse.mm(ap_csr, Hp))})
+    del a_csr, ap_csr, h_cols
+    # one format-aware inference on the device, per kernel and fused: the
+    # ELL conversions (formats.dense_to_ell) beside the csr_spmm launches
+    record("profile", engine="per-kernel", path="csr", card=card,
+           **profile_device(torch, lambda: sage.run(eng), top=20))
+    record("profile", engine="fused", path="csr", card=card,
+           **profile_device(torch, lambda: fused_csr.run(sage.compiled,
+                                                         sage.tensors),
+                            top=20))
+
+    # ---------------- phase 4b: bf16 on the static and CSR routes ---------
+    brng = np.random.default_rng(6)
+
+    def small_ints(m_, n_, density):
+        """bf16 integers in [-4, 4] on a sparse mask: every product and
+        partial sum is exact in float32, so the card and the plain route
+        agree exactly whatever the order of their sums (the executor casts
+        its float32 sums to bf16), and a stale tile shows."""
+        v = brng.integers(-4, 5, size=(m_, n_)) * (
+            brng.random((m_, n_)) < density)
+        return torch.from_numpy(v.astype(np.float32)).to(dev).bfloat16()
+
+    bx, bw = small_ints(3327, 3703, 0.01), small_ints(3703, 16, 0.5)
+    ba, bh = small_ints(3327, 3327, 0.002), small_ints(3327, 16, 0.5)
+    bblk = (64, 64, 16)                 # bm, bn in dispatch.BLOCK_EDGES
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    cases = []
+    for strategy in ("gemm", "s1", "s2"):
+        kw = dict(strategy=strategy, block=bblk,
+                  kernel_type=KernelType.AGGREGATE)
+        cases.append((f"bf16 {strategy} H0-shaped @ W, {bblk}",
+                      lambda kw=kw: dynasparse.dynasparse_matmul(
+                          bx, bw, **kw).out,
+                      lambda kw=kw: dynasparse.dynasparse_matmul(
+                          bx.cpu(), bw.cpu(), **kw).out))
+    kw = dict(block=bblk, fmt=one, format_aware=True, csr_rmax=rmax)
+    cases.append(("bf16 format-aware CSR A-shaped @ H1-shaped",
+                  lambda: dynasparse.dynasparse_matmul(ba, bh, **kw).out,
+                  lambda: dynasparse.dynasparse_matmul(
+                      ba.cpu(), bh.cpu(), **{**kw, "fmt": one.cpu()}).out))
+    small_checks("dynasparse_matmul", cases, tol=DISPATCH_BF16_TOL)
+    bf16_counts = K.launch_counts()
+    record("bf16_routes_launches", counts=bf16_counts)
+    check(bf16_counts["dispatch"] >= 4 and bf16_counts["csr_spmm"] >= 1
+          and bf16_counts["gemm"] == bf16_counts["spdmm"] == 0,
+          f"bf16 static/CSR routes launched {bf16_counts}")
+    del bx, bw, ba, bh
 
     # ---------------- phase 5: GCN on full-size CiteSeer ------------------
     gcn = gnn.build_dense("gcn", "CI", scale=1.0, device=dev)
@@ -750,8 +886,11 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
         "tile_nnz", "src/repro_torch/kernels/csrc/tile_nnz.cu",
         "src/repro/kernels/profile.py:25",
         lambda: K.profile.tile_nnz(w1, (256, 256)),
-        lambda: K.profile.tile_nnz_plain(w1, (256, 256)), None,
-        nnz_work(w1, (256, 256)), lambda g, w: True, units="simt")
+        lambda: K.profile.tile_nnz_plain(w1, (256, 256)),
+        lambda: torch.count_nonzero(w1.view(8, 256, 32, 256), dim=(1, 3)),
+        nnz_work(w1, (256, 256)), lambda g, w: True, units="simt",
+        lib_call="torch.count_nonzero(w1.view(8, 256, 32, 256), "
+                 "dim=(1, 3))")
     ragged = A[:1000, :777].to(torch.bfloat16)
     small_checks("tile_nnz", [
         ("A_mean 3327x3327 f32 at (64, 16)",
@@ -1102,7 +1241,7 @@ SENTINELS = 4         # spin kernels opening each profiler window
 WINDOWS = 4           # profiler windows taken at most, until one is whole
 
 
-def profile_device(torch, fn, n: int = 3) -> dict:
+def profile_device(torch, fn, n: int = 3, top: int = 10) -> dict:
     """Device busy time and the top device ops of ``fn``, from
     ``torch.profiler`` over ``n`` calls after a warm-up call (the
     profiler's own overhead is in ``wall_ms_profiled``).
@@ -1150,12 +1289,12 @@ def profile_device(torch, fn, n: int = 3) -> dict:
                 "idle_share": "not measured", "windows": window,
                 "complete": False, "top_device_ops": []}
     busy = sum(dev_ms(e) for e in events)
-    top = sorted(events, key=dev_ms, reverse=True)[:10]
+    ops = sorted(events, key=dev_ms, reverse=True)[:top]
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms, "windows": window,
             "complete": True,
             "top_device_ops": [[e.key[:80], dev_ms(e), e.count / n]
-                               for e in top]}
+                               for e in ops]}
 
 
 def dispatch_work(torch, K, x, y, codes, block) -> tuple:

@@ -17,13 +17,16 @@ Routes of the block path:
 
 * ``dynamic`` -- the ``dispatch`` kernel walks the planned (I, J, K) grid;
 * a static strategy (``gemm``/``s1``/``s2``) fixes one primitive for the
-  whole kernel, known on the host without looking at the data, so the
-  product runs as one ``gemm`` launch or one ``spdmm`` launch over the
-  Block-CSR lhs (16x16 tiles).  Their code grids are still returned.
+  whole kernel, known on the host without looking at the data, so on
+  float32 operands the product runs as one ``gemm`` launch or one
+  ``spdmm`` launch over the Block-CSR lhs (16x16 tiles); on bf16 operands
+  the bf16 ``dispatch`` walks the strategy's constant code grid (the
+  route is chosen by type, so the CPU walks it too).  Their code grids
+  are still returned.
 
-Operands are float32 or bfloat16 (the LM's FFN); the block path
-accumulates in float32 and the result takes ``promote_types(x, y)``, as
-in the reference.  The static routes' kernels take float32 only.
+Operands are float32 or bfloat16 (the LM's FFN); the block path and the
+row-CSR kernel accumulate in float32 and the result takes
+``promote_types(x, y)``, as in the reference.
 
 The planner bypasses (``codes``, ``dens_x``/``dens_y``, ``fmt``, ``ell``)
 keep the reference's meaning: the fused whole-model executor plans from
@@ -79,8 +82,13 @@ def ell_when(want: torch.Tensor, x: torch.Tensor, rmax: int
 
 
 def _block_path(x, y, codes, block, static, out, skip) -> torch.Tensor:
-    """The padded float32 product through the route the strategy fixes."""
+    """The float32 product through the route the strategy and the operand
+    type fix: a float32 static strategy runs one ``gemm`` or ``spdmm``
+    launch, anything else (bf16 static grids included) the ``dispatch``
+    walk of ``codes``."""
     m, n = x.shape[0], y.shape[1]
+    if torch.bfloat16 in (x.dtype, y.dtype):
+        static = None       # the bf16 dispatch walks the constant grid
     if static == Primitive.GEMM:
         bm, bk, bn = block
         full = _gemm.gemm(_dispatch.pad_to(x, bm, bk).contiguous(),

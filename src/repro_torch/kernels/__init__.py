@@ -25,3 +25,4 @@ def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
     spdmm.launches_by_shape.clear()
+    csr_spmm.launches_by_shape.clear()

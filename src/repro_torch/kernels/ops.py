@@ -60,11 +60,13 @@ def spmm(x: torch.Tensor, y: torch.Tensor, *,
 def csr_spmm(x: Union[torch.Tensor, formats.ELLMatrix], y: torch.Tensor, *,
              rmax: int = 64) -> torch.Tensor:
     """Row-CSR x dense.  ``x`` is a dense matrix (converted here with
-    ``formats.dense_to_ell``) or an already-built ``formats.ELLMatrix``."""
+    ``formats.dense_to_ell``) or an already-built ``formats.ELLMatrix``.
+    The kernel accumulates in float32; the result takes
+    ``promote_types(x, y)``, as in the reference."""
     ell = x if isinstance(x, formats.ELLMatrix) else formats.dense_to_ell(
         x, rmax=rmax)
-    return _csr.csr_spmm(ell.values, ell.cols, ell.row_counts,
-                         y.contiguous())
+    out = _csr.csr_spmm(ell.values, ell.cols, ell.row_counts, y.contiguous())
+    return out.to(torch.promote_types(ell.values.dtype, y.dtype))
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, primitive: Primitive, *,

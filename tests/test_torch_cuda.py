@@ -387,3 +387,123 @@ def test_sparse_kernels_raise_on_what_they_do_not_take(cuda):
                 lambda: K.spmm.spmm(odd_x, yb, plan)):
         with pytest.raises(ValueError):
             bad()
+
+
+def hub_sparse(seed, m, k, device):
+    """A sparse (m, k) float32 matrix with an empty row 0, a hub row 5 of
+    600 nonzeros (more than 512 slots) and about 1 % elsewhere."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    mask = rng.random((m, k)) < 0.01
+    mask[0] = False
+    mask[5] = False
+    mask[5, rng.permutation(k)[:600]] = True
+    return torch.from_numpy(x * mask).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 3703])
+def test_csr_spmm_equals_gemm_bitwise(cuda, n):
+    """Each output is one fmaf chain over the row's slots (ascending
+    columns) from 0: the dense gemm's value bit for bit, every row (the
+    empty one too) written once, the hub row on the heavy strips."""
+    m, k = 300, 700
+    x = hub_sparse(30, m, k, cuda)
+    y = sparse(31, k, n, 0.9, cuda)
+    ell = formats.dense_to_ell(x, 704)
+    assert int(ell.row_counts.max()) == 600
+    want = K.gemm.gemm(dispatch.pad_to(x, 16, 16).contiguous(),
+                       dispatch.pad_to(y, 16, 16).contiguous())[:m, :n]
+    out = torch.full((m, n), float("nan"), device=cuda)
+    K.reset_launch_counts()
+    got = K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, y,
+                              out=out)
+    assert K.launch_counts()["csr_spmm"] == 1
+    assert torch.equal(got, want)
+    assert not got[0].any()
+    torch.testing.assert_close(
+        got, K.csr_spmm.csr_spmm_plain(ell.values, ell.cols, ell.row_counts,
+                                       y), **TOL)
+    shape = K.csr_spmm.csr_launch(m, n, 704, build.sm_count(cuda))
+    assert shape.heavy_rows == 48
+
+
+def test_csr_spmm_run_flag_wide_out_and_caps(cuda):
+    m, k, n = 200, 300, 40
+    x = hub_sparse(32, m, k, cuda)
+    y = sparse(33, k, n, 0.7, cuda)
+    ell = formats.dense_to_ell(x, 128)       # the hub row is cut at 128
+    want = K.csr_spmm.csr_spmm_plain(ell.values, ell.cols, ell.row_counts, y)
+    # run = 0 leaves out as it was; run = 1 writes it
+    kept = torch.full((m, n), 7.0, device=cuda)
+    flag = torch.zeros((), dtype=torch.int32, device=cuda)
+    K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, y, out=kept,
+                        run=flag)
+    assert bool((kept == 7.0).all())
+    K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, y, out=kept,
+                        run=flag + 1)
+    torch.testing.assert_close(kept, want, **TOL)
+    # ldo > n: only [:m, :n] of a wider, taller buffer is written
+    wide = torch.full((m + 8, n + 24), float("nan"), device=cuda)
+    K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, y, out=wide)
+    assert torch.equal(wide[:m, :n], kept)
+    assert bool(wide[m:].isnan().all()) and bool(wide[:, n:].isnan().all())
+    # rmax = 0: every row writes 0
+    z = formats.dense_to_ell(torch.zeros_like(x), 0)
+    assert not K.csr_spmm.csr_spmm(z.values, z.cols, z.row_counts, y).any()
+    for bad in (lambda: K.csr_spmm.csr_spmm(ell.values, ell.cols,
+                                            ell.row_counts, y.bfloat16()),
+                lambda: K.csr_spmm.csr_spmm(ell.values.double(), ell.cols,
+                                            ell.row_counts, y.double())):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.parametrize("n", [16, 17, 3703])
+def test_csr_spmm_bf16_matches_plain(cuda, n):
+    m, k = 300, 700
+    x = hub_sparse(34, m, k, cuda).bfloat16()
+    y = sparse(35, k, n, 0.9, cuda).bfloat16()
+    ell = formats.dense_to_ell(x, 704)
+    got = K.csr_spmm.csr_spmm(ell.values, ell.cols, ell.row_counts, y)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(
+        got, K.csr_spmm.csr_spmm_plain(ell.values, ell.cols, ell.row_counts,
+                                       y), atol=5e-2, rtol=5e-2)
+    res = ops.csr_spmm(ell, y)
+    assert res.dtype == torch.bfloat16
+
+
+def small_ints(seed, m, n, density, device):
+    """bf16 integers in [-4, 4] on a sparse mask: every product and partial
+    sum is exact in float32, so the kernel and the plain version agree
+    exactly whatever the order of their float32 sums, and a stale or
+    skipped tile shows as a whole-number error."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-4, 5, size=(m, n)) * (rng.random((m, n)) < density)
+    return torch.from_numpy(x.astype(np.float32)).to(device).bfloat16()
+
+
+@pytest.mark.parametrize("strategy", ["gemm", "s1", "s2"])
+@pytest.mark.parametrize("block", [(16, 16, 16), (64, 64, 64)])
+def test_bf16_static_strategies_run_on_dispatch(cuda, strategy, block):
+    from repro_torch.core import dynasparse
+    from repro_torch.core.ir import KernelType
+    x = small_ints(36, 300, 520, 0.1, cuda)
+    y = small_ints(37, 520, 200, 0.3, cuda)
+    kw = dict(strategy=strategy, block=block,
+              kernel_type=KernelType.AGGREGATE)
+    K.reset_launch_counts()
+    got = dynasparse.dynasparse_matmul(x, y, **kw)
+    assert K.launch_counts()["dispatch"] == 1
+    assert K.launch_counts()["gemm"] == K.launch_counts()["spdmm"] == 0
+    want = dynasparse.dynasparse_matmul(x.cpu(), y.cpu(), **kw)
+    assert got.out.dtype == torch.bfloat16
+    torch.testing.assert_close(got.out.cpu().float(), want.out.float(),
+                               **MMA_TOL)
+    # the format-aware route in bf16: csr_spmm on the same operands
+    fmt = torch.ones((), dtype=torch.int32, device=cuda)
+    res = dynasparse.dynasparse_matmul(x, y, block=block, fmt=fmt,
+                                       format_aware=True, csr_rmax=520)
+    assert int(res.fmt) == 1 and res.out.dtype == torch.bfloat16
+    torch.testing.assert_close(res.out.float(), want.out.float().to(cuda),
+                               **MMA_TOL)
