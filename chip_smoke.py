@@ -10,6 +10,11 @@ card at the shapes its path gives it, then drives the port's paths:
 * GraphSAGE on full-size CiteSeer (3327 vertices, 3703 features, hidden
   16, 6 classes, random seeded weights) through both engines, checked
   against a float64 dense oracle (GCN, row-CSR and ``ops.matmul`` too);
+* GAT on the same graph (2 layers x 2 heads, slope 0.2, threshold 0.02):
+  the masked edge-softmax kernel ``edge_softmax`` against its plain
+  version on layer 1 head 1's operands, then both engines under every
+  strategy and the row-CSR route, held to the JAX planner's histograms
+  and to a float64 oracle on the run's own attention support;
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
@@ -84,6 +89,14 @@ PEAK_FP32 = 67e12     # H100 SXM, FP32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12    # H100 SXM, bf16 dense tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 REF_SAGE_CI_HIST = [443182, 317, 84728, 198733]   # the JAX planner, CPU
+# GAT on full-size CiteSeer, seed 0: the JAX package's histograms on the
+# CPU, per strategy (FPGA model) and on the row-CSR route (CHEAP, csr_rmax
+# = A's longest row, 541)
+REF_GAT_CI_HIST = {"dynamic": [54837, 268, 85091, 0],
+                   "s1": [0, 96932, 43264, 0], "s2": [0, 4, 140192, 0],
+                   "gemm": [0, 140196, 0, 0]}
+REF_GAT_CI_CSR_HIST = [54837, 4, 84782, 573]
+FLIP_DIST = 1e-6      # a support flip further than this from the threshold
 
 RECORDS: list = []
 
@@ -190,14 +203,16 @@ def main() -> int:
 
     def kernel_entry(name, source, replaces, fn, plain, lib, work, ok_err,
                      tol=TOL, peak=PEAK_FP32, line=True, units="fma",
-                     line_name=None, lib_call=None, launches=None):
+                     line_name=None, lib_call=None, launches=None,
+                     compare=None):
         """Check, time and record one kernel.  ``launches`` is its count
         on the main path where that has run; the kernels line's entries get
-        theirs when every path has run (None in their ``kernel`` record)."""
+        theirs when every path has run (None in their ``kernel`` record).
+        ``compare(got, want, tol)`` -> (max|err|, ok) replaces ``agree``."""
         got = fn()
         want = plain()
         torch.cuda.synchronize()
-        err, ok = agree(got, want, tol)
+        err, ok = (compare or agree)(got, want, tol)
         check(ok and ok_err(got, want),
               f"{name}: kernel disagrees with its plain version "
               f"(max|err|={err}, tol={tol})")
@@ -231,11 +246,11 @@ def main() -> int:
                       flops=flops, bytes=nbytes, tol=tol,
                       in_kernels_line=line)
 
-    def small_checks(name, fn_pairs, tol=TOL):
+    def small_checks(name, fn_pairs, tol=TOL, compare=None):
         for label, fn, plain in fn_pairs:
             got, want = fn(), plain()
             torch.cuda.synchronize()
-            err, ok = agree(got, want, tol)
+            err, ok = (compare or agree)(got, want, tol)
             check(ok, f"{name} {label}: max|err|={err} (tol {tol})")
             record("kernel_case", kernel=name, case=label, max_abs_err=err,
                    tol=tol)
@@ -739,6 +754,10 @@ def main() -> int:
            max_abs_err_vs_f64=g_err, fused_bitwise_per_kernel=True,
            launches=gcn_counts)
 
+    # ---------------- phase 5b: GAT on full-size CiteSeer -----------------
+    gat_counts = gat_phase(torch, np, K, dev, card, kernel_entry,
+                           small_checks, close)
+
     # ---------------- phase 6: the per-primitive path (ops.matmul) --------
     K.reset_launch_counts()
     for prim in (Primitive.GEMM, Primitive.SPDMM, Primitive.SPMM):
@@ -794,6 +813,7 @@ def main() -> int:
     kernels_line["flash_attention"]["launches"] = \
         lm_counts["score"]["flash_attention"]
     kernels_line[LM_DISPATCH]["launches"] = lm_counts["serve"]["dispatch"]
+    kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
     check(set(K.KERNEL_MODULES) | {LM_DISPATCH} == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
@@ -806,6 +826,237 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
+              close) -> dict:
+    """Phase 5b: GAT on full-size CiteSeer.  ``edge_softmax`` against its
+    plain version on layer 1 head 1's operands (and a small case with
+    empty rows); both engines under every strategy in one launch-count
+    window, held to the JAX planner's histograms and a float64 oracle; the
+    row-CSR route under CHEAP; one profiled fused inference.  Returns the
+    window's launch counts."""
+    from repro_torch.core import analyzer, runtime
+    from repro_torch.core.ir import KernelType
+    from repro_torch.core.perf_model import Format, TPUCostModel
+    from repro_torch.models import gnn
+
+    E = K.edge_softmax
+    t0 = time.perf_counter()
+    gat = gnn.build_dense("gat", "CI", scale=1.0, device=dev)
+    cm, tensors = gat.compiled, gat.tensors
+    kernels = cm.graph.kernels
+    att = next(k for k in kernels if k.kernel_type == KernelType.ATTENTION)
+    slope, thr = att.att_slope, att.att_threshold
+    record("bundle", model="gat", dataset="CI",
+           vertices=gat.graph.spec.n_vertices, features=gat.graph.spec.f_in,
+           heads=2, slope=slope, threshold=thr,
+           kernels=[(k.name, k.block_dims) for k in kernels],
+           seconds=time.perf_counter() - t0)
+    last = kernels[-1].out
+    heads = [k_.out for k_ in kernels if k_.kernel_type
+             == KernelType.ATTENTION]                  # T1h1 ... T2h2
+
+    def flip_report(label, got, want, threshold=thr):
+        """Entries zero on one side, nonzero on the other: each within
+        FLIP_DIST of the threshold, or the run fails."""
+        n_, dist = E.support_flips(got, want, threshold)
+        record("attention_flips", case=label, flips=n_,
+               max_dist_from_threshold=dist, limit=FLIP_DIST)
+        check(dist <= FLIP_DIST, f"{label}: {n_} support flips, one "
+              f"{dist} from the threshold")
+        return n_
+
+    def alpha_agree(threshold):
+        """(max|err|, ok) of two alphas over the entries neither side
+        zeroed alone: a flip at the threshold is reported, not an error."""
+        def compare(got, want, tol):
+            same = (got != 0) == (want != 0)
+            g_, w_ = torch.where(same, got, 0.0), torch.where(same, want, 0.0)
+            err = float((g_.double() - w_.double()).abs().max())
+            flip_report(f"edge_softmax vs plain, n={got.shape[0]}", got,
+                        want, threshold)
+            return err, close(g_, w_, tol)
+        return compare
+
+    # the kernel on layer 1 head 1's operands (a warm-up inference makes
+    # Z1h1; its launches are outside every window)
+    warm, _ = runtime.FusedModelExecutor(keep_intermediates=True).run(
+        cm, tensors)
+    A, Z = tensors["A"], warm["Z1h1"]
+    asrc, adst = tensors["a_src1h1"], tensors["a_dst1h1"]
+    del warm
+    n, f = Z.shape
+    nnz = int(torch.count_nonzero(A))
+
+    def es():
+        return E.edge_softmax(A, Z, asrc, adst, slope=slope, threshold=thr)
+
+    def es_plain():
+        return E.edge_softmax_plain(A, Z, asrc, adst, slope=slope,
+                                    threshold=thr)
+
+    got, want = es(), es_plain()
+    torch.cuda.synchronize()
+    n_flips = E.support_flips(got, want, thr)[0]   # reported by the entry
+    cg, cw = (K.profile.tile_nnz(t_, (16, 16)) for t_ in (got, want))
+    diff = int((cg - cw).abs().sum())
+    check(diff == 0 if n_flips == 0 else diff <= n_flips,
+          f"edge_softmax: tile counts differ by {diff} ({n_flips} flips)")
+    record("edge_softmax_support", case="A @ Z1h1", nnz_kernel=int(
+        torch.count_nonzero(got)), nnz_plain=int(torch.count_nonzero(want)),
+        support=nnz, flips=n_flips, tile_counts_equal=diff == 0)
+    del got, want, cg, cw
+    kernel_entry(
+        "edge_softmax", "src/repro_torch/kernels/csrc/edge_softmax.cu",
+        "src/repro/core/dynasparse.py:311 (jnp attention_adjacency; no "
+        "pallas_call)", es, es_plain, None,
+        # score, LeakyReLU and compare per element and both projections;
+        # subtract, exp, add and divide per support entry.  Bytes: a read
+        # once, alpha written once, z and the vectors read once
+        (4.0 * n * f + 3.0 * n * n + 4.0 * nnz,
+         4.0 * (2 * n * n + n * f + 2 * f)),
+        lambda g, w: True, units="simt", compare=alpha_agree(thr),
+        lib_call="none: no single PyTorch call computes a thresholded "
+                 "masked edge-softmax")
+    rng = np.random.default_rng(7)
+    small = [torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
+        rng.random((40, 40)) < 0.2, rng.normal(size=(40, 8)),
+        rng.normal(size=(8, 1)), rng.normal(size=(8, 1)))]
+    small[0][-5:] = 0.0
+    for t_ in (0.0, 0.6):
+        small_checks("edge_softmax", [(
+            f"n=40, five empty rows, threshold {t_}",
+            lambda t_=t_: E.edge_softmax(*small, threshold=t_),
+            lambda t_=t_: E.edge_softmax_plain(*small, threshold=t_))],
+            compare=alpha_agree(t_))
+        got = E.edge_softmax(*small, threshold=t_)
+        check(not got[-5:].any() and not torch.isnan(got).any(),
+              "edge_softmax: empty rows are not exactly zero")
+
+    # ---- both engines, every strategy, in one window --------------------
+    K.reset_launch_counts()
+    runs = {}
+    for strategy in analyzer.STRATEGIES:
+        eng = runtime.DynasparseEngine(strategy=strategy, keep_codes=True)
+        env_s, rep = eng.run(cm, tensors)
+        runs[strategy] = (env_s, rep.histogram.tolist(), eng.planned_codes)
+    fused = runtime.FusedModelExecutor(strategy="dynamic", keep_codes=True)
+    f_env, f_rep = fused.run(cm, tensors)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    record("gat_path_launches", model="gat", dataset="CI", counts=counts)
+    engines = len(analyzer.STRATEGIES) + 1
+    check(counts["edge_softmax"] == 4 * engines,
+          f"edge_softmax launched {counts['edge_softmax']} times, expected "
+          f"4 per inference in {engines} inferences")
+    for name in ("edge_softmax", "dispatch", "gemm", "spdmm", "tile_nnz"):
+        check(counts[name] > 0, f"GAT path never launched {name}")
+    hist = {s_: h_ for s_, (_, h_, _) in runs.items()}
+    check(hist == REF_GAT_CI_HIST, f"GAT histograms {hist} != the JAX "
+          f"planner's {REF_GAT_CI_HIST}")
+    dyn_env, _, dyn_codes = runs["dynamic"]
+    bitwise = bool(torch.equal(f_env[last], dyn_env[last]))
+    check(bitwise, "fused != per-kernel (gat dynamic)")
+    check(f_rep.histogram.tolist() == hist["dynamic"],
+          "fused GAT histogram differs from per-kernel")
+    for name, c in dyn_codes.items():
+        check(np.array_equal(c, fused.planned_codes[name]),
+              f"fused codes differ from per-kernel codes at {name}")
+
+    # float64 oracle on each run's own post-threshold support
+    t64 = {k_: v.double() for k_, v in tensors.items()}
+
+    def alpha64(a, z, s_, d_):
+        s2 = z @ torch.cat([s_, d_], dim=1)
+        sc = s2[:, :1] + s2[:, 1:2].T
+        sc = torch.where(sc >= 0, sc, slope * sc)
+        sup = a != 0
+        mx = torch.where(sup, sc, float("-inf")).amax(dim=1, keepdim=True)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        ex = torch.where(sup, torch.exp(sc - mx), 0.0)
+        return ex / ex.sum(dim=1, keepdim=True).clamp(min=1e-30)
+
+    def oracle(env_s, label):
+        h = t64["H0"]
+        for l_ in (1, 2):
+            acc = 0.0
+            for hd in (1, 2):
+                z = h @ t64[f"Wg{l_}h{hd}"]
+                al = alpha64(t64["A"], z, t64[f"a_src{l_}h{hd}"],
+                             t64[f"a_dst{l_}h{hd}"])
+                run_t = env_s[f"T{l_}h{hd}"]
+                flip_report(f"{label} T{l_}h{hd} vs float64",
+                            run_t, torch.where(al > thr, al, 0.0).float())
+                acc = acc + torch.where(run_t != 0, al, 0.0) @ z
+            h = torch.relu(acc) if l_ == 1 else acc
+        return h
+
+    for strategy, (env_s, h_, _) in runs.items():
+        want = oracle(env_s, f"gat {strategy}")
+        err = float((env_s[last].double() - want).abs().max())
+        check(close(env_s[last], want, MODEL_TOL),
+              f"gat {strategy} vs float64 oracle: max|err|={err}")
+        record("strategy", model="gat", strategy=strategy, histogram=h_,
+               reference_histogram=REF_GAT_CI_HIST[strategy],
+               max_abs_err_vs_f64=err,
+               attention_nnz={t_: int(torch.count_nonzero(env_s[t_]))
+                              for t_ in heads})
+    record("gat_path", model="gat", dataset="CI", histograms=hist,
+           equal_to_reference=True, fused_bitwise_per_kernel=bitwise,
+           per_kernel_histograms={k_.name: r.histogram.tolist() for k_, r in
+                                  zip(kernels, f_rep.kernels)})
+    del runs, f_env
+
+    # ---- the row-CSR route: ELL of each head's attention matrix ---------
+    cheap = dataclasses.replace(TPUCostModel(), eff_transform=1.0,
+                                transform_overhead_s=0.0)
+    rmax = int((A != 0).sum(dim=1).max())
+    K.reset_launch_counts()
+    eng = runtime.DynasparseEngine(model=cheap, csr_rmax=rmax,
+                                   keep_codes=True)
+    c_env, c_rep = eng.run(cm, tensors)
+    fused_c = runtime.FusedModelExecutor(model=cheap, csr_rmax=rmax,
+                                         keep_codes=True)
+    cf_env, _ = fused_c.run(cm, tensors)
+    torch.cuda.synchronize()
+    csr_counts = K.launch_counts()
+    record("gat_csr_path_launches", counts=csr_counts)
+    check(csr_counts["csr_spmm"] > 0, "GAT CSR route never launched csr_spmm")
+    check(csr_counts["edge_softmax"] == 8, "GAT CSR route launched "
+          f"edge_softmax {csr_counts['edge_softmax']} times, expected 8")
+    aggs = [k_.out for k_ in kernels if k_.kernel_type == KernelType.AGGREGATE]
+    fmts = {k_: int(v) for k_, v in eng.planned_formats.items()}
+    check(all(fmts[a_] == Format.CSR for a_ in aggs),
+          f"CSR not executed on every head Aggregate: {fmts}")
+    c_hist = c_rep.histogram.tolist()
+    check(c_hist == REF_GAT_CI_CSR_HIST, f"GAT CSR histogram {c_hist} != "
+          f"the JAX planner's {REF_GAT_CI_CSR_HIST}")
+    c_bitwise = bool(torch.equal(cf_env[last], c_env[last]))
+    check(c_bitwise, "fused != per-kernel (gat CSR route)")
+    err = float((c_env[last].double() - dyn_env[last].double()).abs().max())
+    check(close(c_env[last], dyn_env[last], TOL),
+          f"GAT CSR route vs block path: max|err|={err}")
+    record("gat_csr_path", rmax=rmax, formats=fmts, histogram=c_hist,
+           reference_histogram=REF_GAT_CI_CSR_HIST,
+           max_abs_err_vs_block_path=err, fused_bitwise_per_kernel=True)
+    del c_env, cf_env, dyn_env
+
+    # ---- times: one inference per engine; one profiled fused inference --
+    for strategy in analyzer.STRATEGIES:
+        eng = runtime.DynasparseEngine(strategy=strategy)
+        record("wall", model="gat", dataset="CI", engine="per-kernel",
+               strategy=strategy,
+               median_ms=wall_ms(torch, lambda: eng.run(cm, tensors)),
+               card=card)
+    fx = runtime.FusedModelExecutor(collect_report=False)
+    record("wall", model="gat", dataset="CI", engine="fused",
+           strategy="dynamic", collect_report=False,
+           median_ms=wall_ms(torch, lambda: fx.run(cm, tensors)), card=card)
+    record("profile", model="gat", engine="fused", collect_report=False,
+           card=card, **profile_device(torch, lambda: fx.run(cm, tensors),
+                                       top=15))
+    return counts
 
 
 LM_ARCH = "llama3.2-1b"

@@ -31,7 +31,11 @@ row-CSR kernel accumulate in float32 and the result takes
 The planner bypasses (``codes``, ``dens_x``/``dens_y``, ``fmt``, ``ell``)
 keep the reference's meaning: the fused whole-model executor plans from
 propagated writeback profiles and shares one ELL view across kernels.
-GAT's ``attention_adjacency`` is not ported yet.
+
+:func:`attention_adjacency` is GAT's attention kernel: the masked
+edge-softmax (``kernels/edge_softmax.py``, a CUDA kernel on the card)
+and its writeback profile, returned as a :class:`DynasparseResult` so
+both engines chain it like a matmul kernel.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core.perf_model import FPGACostModel, Format, Primitive
 from repro_torch.kernels import csr_spmm as _csr
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import spdmm as _spdmm
 
 TILE = (16, 16)     # the static SpDMM route's Block-CSR tile
@@ -190,3 +195,39 @@ def dynasparse_matmul(
     out_density = profiler.density_from_counts(out_counts, m, n, *ob)
     return DynasparseResult(out, codes, dens_x, dens_y, out_density,
                             out_counts, executed_fmt)
+
+
+def attention_adjacency(
+    a: torch.Tensor,
+    z: torch.Tensor,
+    att_src: torch.Tensor,
+    att_dst: torch.Tensor,
+    *,
+    slope: float = 0.2,
+    threshold: float = 0.0,
+    out_block: Tuple[int, int] = (128, 128),
+) -> DynasparseResult:
+    """Thresholded masked edge-softmax over the adjacency support (GAT);
+    port of ``repro.core.dynasparse.attention_adjacency``.
+
+    ``a`` is the (n, n) adjacency (only its support matters), ``z`` the
+    head's (n, f) features, ``att_src``/``att_dst`` its (f, 1) attention
+    vectors.  ``out`` is alpha (``promote_types(a, z)``): rows sum to 1
+    over the support before weights ``<= threshold`` drop to exactly 0,
+    and all-zero rows stay zero.  ``codes`` is the degenerate one-GEMM grid
+    (the kernel's cost is one dense task), ``dens_x``/``dens_y`` ones, and
+    ``out_counts`` alpha's block counts at ``out_block``: what the head's
+    Aggregate plans from.  Both engines call this one function, so their
+    alpha is bitwise the same.
+    """
+    m = a.shape[0]
+    dev = a.device
+    alpha = _ops.edge_softmax(a, z, att_src, att_dst, slope=slope,
+                              threshold=threshold)
+    out_counts = profiler.block_counts(alpha, out_block)
+    out_density = profiler.density_from_counts(out_counts, m, m, *out_block)
+    one = torch.ones((1, 1), dtype=torch.float32, device=dev)
+    codes = torch.full((1, 1, 1), int(Primitive.GEMM), dtype=torch.int32,
+                       device=dev)
+    return DynasparseResult(alpha, codes, one, one, out_density, out_counts,
+                            torch.zeros((), dtype=torch.int32, device=dev))

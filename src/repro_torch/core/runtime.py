@@ -12,9 +12,11 @@ Port of the single-inference engines of ``repro.core.runtime``:
   equal to the per-kernel engine's.
 
 Both bring the planner's codes to the host only for the report
-bookkeeping (``_bookkeep_kernel``).  Batched waves, sharded dispatch and
-the cost-model simulator are not ported yet; ATTENTION kernels (GAT) raise
-``NotImplementedError``.
+bookkeeping (``_bookkeep_kernel``).  A GAT head's ATTENTION kernel runs
+``attention_adjacency`` (the masked edge-softmax) in both engines; it plans
+nothing itself, and its writeback counts are what the head's Aggregate
+plans from.  Batched waves, sharded dispatch and the cost-model simulator
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import torch
 
 from repro_torch.core import analyzer, formats, profiler, scheduler
 from repro_torch.core.compiler import CompiledModel
-from repro_torch.core.dynasparse import (DynasparseResult, dynasparse_matmul,
-                                         mask_ell)
+from repro_torch.core.dynasparse import (DynasparseResult,
+                                         attention_adjacency,
+                                         dynasparse_matmul, mask_ell)
 from repro_torch.core.ir import AggOp, KernelIR, KernelType
 from repro_torch.core.perf_model import FPGACostModel
 
@@ -122,10 +125,14 @@ def _agg_lhs_name(k: KernelIR) -> str:
     return name
 
 
-def _no_attention(k: KernelIR) -> None:
-    if k.kernel_type == KernelType.ATTENTION:
-        raise NotImplementedError(
-            f"kernel {k.name}: ATTENTION kernels (GAT) are not ported yet")
+def _attention(k: KernelIR, x: torch.Tensor, y: torch.Tensor,
+               env: Dict[str, torch.Tensor]) -> DynasparseResult:
+    """A GAT head's masked edge-softmax over ``x``'s support ("A"), with
+    ``y`` its features; profiled at (N2, N2) like every writeback."""
+    n2 = k.scheme.n2
+    return attention_adjacency(
+        x, y, env[k.att_src], env[k.att_dst], slope=k.att_slope,
+        threshold=k.att_threshold, out_block=(n2, n2))
 
 
 def _bookkeep_kernel(k: KernelIR, codes, dens_x, dens_y, n_cc: int, model
@@ -219,13 +226,16 @@ class DynasparseEngine:
 
     def _run_kernel(self, k: KernelIR, env: Dict[str, torch.Tensor],
                     n_cc: int) -> Tuple[torch.Tensor, KernelReport]:
-        _no_attention(k)
         x = env[_agg_lhs_name(k) if k.kernel_type == KernelType.AGGREGATE
                 else k.lhs]
         y = env[k.rhs]
-        residual = env[k.epilogue_add] if k.epilogue_add is not None else None
-        fn = self._executor(k, x, y, residual is not None)
-        res: DynasparseResult = fn(x, y, residual=residual)
+        if k.kernel_type == KernelType.ATTENTION:
+            res = _attention(k, x, y, env)
+        else:
+            residual = (env[k.epilogue_add]
+                        if k.epilogue_add is not None else None)
+            fn = self._executor(k, x, y, residual is not None)
+            res = fn(x, y, residual=residual)
         _sync(res.out)
         self.profiled_densities[k.out] = res.out_density
         if self.keep_codes:
@@ -297,7 +307,8 @@ class FusedModelExecutor:
         ks = tuple(
             (k.name, k.kernel_type, k.block_dims, k.scheme.n2, k.lhs, k.rhs,
              k.out, k.agg_op.value, k.epilogue_add, k.epilogue_scale,
-             k.activation.value if k.activation_enabled else "none")
+             k.activation.value if k.activation_enabled else "none",
+             k.att_src, k.att_dst, k.att_slope, k.att_threshold)
             for k in compiled.graph.topo_order())
         return (ks, self._tensor_sig(tensors))
 
@@ -340,47 +351,54 @@ class FusedModelExecutor:
         ell_env: Dict[tuple, tuple] = {}    # key -> (want so far, full view)
         sides = []
         for k, (fx, fy) in zip(kernels, flows):
-            _no_attention(k)
             x, y = env[fx.source], env[fy.source]
-            prof_x, prof_y = (
-                counts_env[f.source].pool_rows(f.pool_rows)
-                                    .pool_cols(f.pool_cols)
-                if f.producer is not None else profiles[(f.source, f.block)]
-                for f in (fx, fy))
-            codes, dens_x, dens_y = analyzer.plan_codes_from_profiles(
-                self.strategy, prof_x, prof_y, self.model,
-                kernel_type=k.kernel_type)
-            fmt = ell = None
-            if self.format_aware:
-                fmt = analyzer.plan_format(
-                    self.strategy, dens_x, dens_y, tuple(x.shape),
-                    y.shape[1], k.block_dims, self.model,
-                    kernel_type=k.kernel_type, rmax=self.csr_rmax)
-                if fmt is not None:
-                    ekey = (fx.source, tuple(x.shape))
-                    prev = ell_env.get(ekey)
-                    if prev is None:
-                        want = fmt
-                        full = formats.dense_to_ell(x, rmax=self.csr_rmax)
-                    else:
-                        prev_want, full = prev
-                        want = torch.maximum(prev_want, fmt)
-                    ell = mask_ell(full, want)
-                    ell_env[ekey] = (want, full)
-            residual = (env[k.epilogue_add]
-                        if k.epilogue_add is not None else None)
+            if k.kernel_type == KernelType.ATTENTION:
+                # no planning of its own: its output density is known only
+                # after it runs, and its writeback counts feed the head's
+                # Aggregate
+                res = _attention(k, x, y, env)
+            else:
+                prof_x, prof_y = (
+                    counts_env[f.source].pool_rows(f.pool_rows)
+                                        .pool_cols(f.pool_cols)
+                    if f.producer is not None
+                    else profiles[(f.source, f.block)]
+                    for f in (fx, fy))
+                codes, dens_x, dens_y = analyzer.plan_codes_from_profiles(
+                    self.strategy, prof_x, prof_y, self.model,
+                    kernel_type=k.kernel_type)
+                fmt = ell = None
+                if self.format_aware:
+                    fmt = analyzer.plan_format(
+                        self.strategy, dens_x, dens_y, tuple(x.shape),
+                        y.shape[1], k.block_dims, self.model,
+                        kernel_type=k.kernel_type, rmax=self.csr_rmax)
+                    if fmt is not None:
+                        ekey = (fx.source, tuple(x.shape))
+                        prev = ell_env.get(ekey)
+                        if prev is None:
+                            want = fmt
+                            full = formats.dense_to_ell(x, rmax=self.csr_rmax)
+                        else:
+                            prev_want, full = prev
+                            want = torch.maximum(prev_want, fmt)
+                        ell = mask_ell(full, want)
+                        ell_env[ekey] = (want, full)
+                residual = (env[k.epilogue_add]
+                            if k.epilogue_add is not None else None)
+                res = dynasparse_matmul(
+                    x, y, codes=codes, dens_x=dens_x, dens_y=dens_y,
+                    fmt=fmt, ell=ell, residual=residual,
+                    strategy=self.strategy, kernel_type=k.kernel_type,
+                    epilogue_scale=(k.epilogue_scale
+                                    if residual is not None else 1.0),
+                    activation=(k.activation.value
+                                if k.activation_enabled else "none"),
+                    out_block=(k.scheme.n2, k.scheme.n2),
+                    block=k.block_dims,
+                    cost_model=self.model, format_aware=self.format_aware,
+                    csr_rmax=self.csr_rmax)
             n2 = k.scheme.n2
-            res = dynasparse_matmul(
-                x, y, codes=codes, dens_x=dens_x, dens_y=dens_y,
-                fmt=fmt, ell=ell, residual=residual, strategy=self.strategy,
-                kernel_type=k.kernel_type,
-                epilogue_scale=(k.epilogue_scale
-                                if residual is not None else 1.0),
-                activation=(k.activation.value
-                            if k.activation_enabled else "none"),
-                out_block=(n2, n2), block=k.block_dims,
-                cost_model=self.model, format_aware=self.format_aware,
-                csr_rmax=self.csr_rmax)
             env[k.out] = res.out
             counts_env[k.out] = profiler.BlockProfile(
                 res.out_counts, tuple(res.out.shape), (n2, n2))

@@ -2,18 +2,21 @@
 
 ``gemm``, ``spdmm``, ``spmm``, ``csr_spmm``, ``profile`` (``tile_nnz``)
 and ``flash_attention`` port the Pallas kernels of ``repro.kernels``;
-``dispatch`` is the executor's one-launch block path.  Each module holds
-its kernel's wrapper, its plain PyTorch version and its launch counter
-(``<module>.launches``); ``ops`` holds the padding and format wrappers,
-``build`` compiles ``csrc/`` with ``nvcc`` at first use.
+``dispatch`` is the executor's one-launch block path and ``edge_softmax``
+GAT's masked edge-softmax (jnp in the reference's
+``attention_adjacency``).  Each module holds its kernel's wrapper, its
+plain PyTorch version and its launch counter (``<module>.launches``);
+``ops`` holds the padding and format wrappers, ``build`` compiles
+``csrc/`` with ``nvcc`` at first use.
 """
 from repro_torch.kernels import (csr_spmm, dispatch,  # noqa: F401
-                                 flash_attention, gemm, ops, profile, spdmm,
-                                 spmm)
+                                 edge_softmax, flash_attention, gemm, ops,
+                                 profile, spdmm, spmm)
 
 KERNEL_MODULES = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm,
                   "csr_spmm": csr_spmm, "dispatch": dispatch,
-                  "tile_nnz": profile, "flash_attention": flash_attention}
+                  "tile_nnz": profile, "flash_attention": flash_attention,
+                  "edge_softmax": edge_softmax}
 
 
 def launch_counts() -> dict:

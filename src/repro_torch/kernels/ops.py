@@ -3,8 +3,9 @@
 These own everything the kernels don't: padding to tile multiples,
 operand-order normalization (the ``sparse_rhs`` transpose), format
 conversion (dense -> Block-CSR / Block-CSC / ELL), dispatch from a
-``Primitive`` code, and attention's GQA check and front padding.  A CUDA tensor runs the CUDA kernels, a CPU tensor
-their plain versions.
+``Primitive`` code, attention's GQA check and front padding, and the
+layout of GAT's edge-softmax operands.  A CUDA tensor runs the CUDA
+kernels, a CPU tensor their plain versions.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.core import formats
 from repro_torch.core.perf_model import Primitive
 from repro_torch.kernels import csr_spmm as _csr
+from repro_torch.kernels import edge_softmax as _edge
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import spdmm as _spdmm
@@ -111,3 +113,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = F.pad(v, (0, 0, pk, 0))
     out = _flash.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
     return out[:, :, pq:, :]
+
+
+def edge_softmax(a: torch.Tensor, z: torch.Tensor, att_src: torch.Tensor,
+                 att_dst: torch.Tensor, *, slope: float = 0.2,
+                 threshold: float = 0.0) -> torch.Tensor:
+    """GAT's thresholded masked edge-softmax over ``a``'s support (the
+    reference's ``attention_adjacency`` body), on contiguous operands."""
+    return _edge.edge_softmax(a.contiguous(), z.contiguous(),
+                              att_src.contiguous(), att_dst.contiguous(),
+                              slope=slope, threshold=threshold)

@@ -1,10 +1,12 @@
-"""GNN models (GCN / GraphSAGE / GIN / SGC) through the Dynasparse stack.
+"""GNN models (GCN / GraphSAGE / GIN / SGC / GAT) through the Dynasparse
+stack.
 
 Port of ``repro.models.gnn``: the model IS its IR (``core.compiler``);
 this module wires weights and datasets into an engine-ready bundle.
-Weights are drawn with numpy from the same seed and in the same order as
-the reference, so :func:`init_weights` is bitwise the reference's.
-GAT (ATTENTION kernels) and the cost-model bundle are not ported yet.
+Weights, GAT's per-head attention vectors included, are drawn with numpy
+from the same seed and in the same order as the reference, so
+:func:`init_weights` is bitwise the reference's.  The cost-model bundle
+(``build_sim``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.profiler import SparsityStats
 from repro_torch.data import graphs as graph_data
 from repro_torch.device import DeviceLike, resolve
 
-GNN_MODELS = ("gcn", "sage", "gin", "sgc")
+GNN_MODELS = ("gcn", "sage", "gin", "sgc", "gat")
 
 
 def make_model_spec(model: str, f_in: int, hidden: int, n_classes: int
@@ -38,8 +40,9 @@ def _glorot_pruned(kernels, *, seed: int, density: float
     out: Dict[str, np.ndarray] = {}
     for k in kernels:
         if k.kernel_type == KernelType.ATTENTION:
-            # the reference draws GAT's attention vectors here; drawing them
-            # keeps the rng stream, and so every weight, identical
+            # per-head attention vectors (f, 1), glorot, never pruned;
+            # drawn where the reference draws them, so the rng stream and
+            # every weight stay identical
             for name in (k.att_src, k.att_dst):
                 if name in out:
                     continue
@@ -58,7 +61,7 @@ def _glorot_pruned(kernels, *, seed: int, density: float
 def init_weights(compiled: CompiledModel, *, seed: int = 0,
                  density: float = 1.0) -> Dict[str, np.ndarray]:
     """Glorot weights for every Update kernel, magnitude-pruned to
-    ``density``."""
+    ``density``, and GAT's attention vectors (never pruned)."""
     return _glorot_pruned(compiled.graph.kernels, seed=seed, density=density)
 
 

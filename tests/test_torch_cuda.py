@@ -507,3 +507,103 @@ def test_bf16_static_strategies_run_on_dispatch(cuda, strategy, block):
     assert int(res.fmt) == 1 and res.out.dtype == torch.bfloat16
     torch.testing.assert_close(res.out.float(), want.out.float().to(cuda),
                                **MMA_TOL)
+
+
+# -- GAT's masked edge-softmax ------------------------------------------------
+
+FLIP_DIST = 1e-6      # a support flip further than this from the threshold
+
+
+def attention_operands(seed, n, f, density, device):
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < density).astype(np.float32)
+    z = rng.normal(size=(n, f)).astype(np.float32)
+    att = rng.normal(size=(2, f, 1)).astype(np.float32)
+    return [torch.from_numpy(v).to(device) for v in (a, z, att[0], att[1])]
+
+
+def assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold):
+    """alpha within 3e-4 of the plain version; any support flip within
+    1e-6 of the threshold; equal tile counts where no entry flipped."""
+    before = K.edge_softmax.launches
+    got = K.edge_softmax.edge_softmax(a, z, asrc, adst, threshold=threshold)
+    want = K.edge_softmax.edge_softmax_plain(a, z, asrc, adst,
+                                             threshold=threshold)
+    assert K.edge_softmax.launches == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    flips, dist = K.edge_softmax.support_flips(got, want, threshold)
+    assert dist <= FLIP_DIST, (flips, dist)
+    if flips == 0:
+        assert torch.equal(K.profile.tile_nnz(got, (16, 16)),
+                           K.profile.tile_nnz_plain(want, (16, 16)))
+    assert not torch.isnan(got).any()
+    empty = a.sum(dim=1) == 0
+    assert not got[empty].any()
+    return got
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.02, 0.6])
+@pytest.mark.parametrize("n", [1, 31, 40, 1000, 3327])
+def test_edge_softmax_matches_plain(cuda, n, threshold):
+    a, z, asrc, adst = attention_operands(n, n, 16, min(1.0, 8.0 / n),
+                                          cuda)
+    a[n // 2] = 0.0                                   # an all-zero row
+    got = assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold)
+    if threshold == 0.0:
+        live = a.sum(dim=1) > 0
+        torch.testing.assert_close(got[live].sum(dim=1),
+                                   torch.ones_like(got[live, 0]),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.02, 0.6])
+@pytest.mark.parametrize("f", [1, 6, 16, 64])
+def test_edge_softmax_widths_and_a_long_row(cuda, f, threshold):
+    a, z, asrc, adst = attention_operands(f, 1500, f, 0.01, cuda)
+    a[7] = 1.0                                        # 1500 support entries
+    a[8, :1100] = 0.5
+    a[9] = 0.0
+    assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.02, 0.6])
+def test_edge_softmax_all_zero_adjacency(cuda, threshold):
+    a, z, asrc, adst = attention_operands(3, 300, 16, 0.0, cuda)
+    got = assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold)
+    assert not got.any()
+
+
+def test_edge_softmax_raises_on_what_it_does_not_take(cuda):
+    a, z, asrc, adst = attention_operands(4, 64, 8, 0.1, cuda)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a.bfloat16(), z, asrc, adst)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a, z.double(), asrc, adst)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a[:, :63], z, asrc, adst)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a, z[:63], asrc, adst)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a, z, asrc[:, 0], adst)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a, z, asrc, adst[:7])
+
+
+def test_gat_fused_equals_per_kernel_on_the_card(cuda):
+    from repro_torch.core import runtime
+    from repro_torch.models import gnn
+    bundle = gnn.build_dense("gat", "CO", scale=0.12, seed=2, device=cuda)
+    K.reset_launch_counts()
+    out, rep = bundle.run(runtime.DynasparseEngine())
+    assert K.launch_counts()["edge_softmax"] == 4
+    K.reset_launch_counts()
+    env, f_rep = runtime.FusedModelExecutor().run(bundle.compiled,
+                                                  bundle.tensors)
+    assert K.launch_counts()["edge_softmax"] == 4
+    last = bundle.compiled.graph.kernels[-1].out
+    assert torch.equal(env[last], out)
+    np.testing.assert_array_equal(f_rep.histogram, rep.histogram)
+    cpu = {k: v.cpu() for k, v in bundle.tensors.items()}
+    want, cpu_rep = runtime.DynasparseEngine().run(bundle.compiled, cpu)
+    torch.testing.assert_close(out.cpu(), want[last], atol=2e-4, rtol=2e-4)
+    np.testing.assert_array_equal(rep.histogram, cpu_rep.histogram)

@@ -17,6 +17,7 @@ from repro.core import runtime as j_rt
 from repro.models import gnn as j_gnn
 from repro_torch.core import perf_model as t_pm
 from repro_torch.core import runtime as t_rt
+from repro_torch.core.ir import KernelType
 from repro_torch.models import gnn as t_gnn
 
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -49,7 +50,7 @@ def assert_same_plans(j_eng, t_eng):
 
 @pytest.mark.parametrize("model,ds,scale", [
     ("gcn", "CO", 0.05), ("sage", "CO", 0.05), ("gin", "CO", 0.05),
-    ("sgc", "CO", 0.05), ("sage", "CI", 0.1)])
+    ("sgc", "CO", 0.05), ("sage", "CI", 0.1), ("gat", "CO", 0.12)])
 @pytest.mark.parametrize("strategy", ["dynamic", "s1", "s2", "gemm"])
 def test_engines_match_reference(model, ds, scale, strategy):
     jb, tb = bundles(model, ds, scale)
@@ -74,11 +75,13 @@ def test_engines_match_reference(model, ds, scale, strategy):
     assert f_rep.total_cycles == pytest.approx(t_rep.total_cycles)
 
 
-@pytest.mark.parametrize("model", ["sage", "gcn"])
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
 def test_csr_format_path_matches_reference(model):
     """Under the TPU model with a free transform and ``csr_rmax`` equal to
-    the graph's largest row, both aggregates run row-CSR in both packages;
-    one row less and the runtime fit check keeps the block path."""
+    the graph's largest row, every aggregate runs row-CSR in both packages;
+    one row less and the runtime fit check keeps the block path wherever
+    the aggregate's lhs has a longer row (GAT's lhs is a head's
+    thresholded attention matrix, whose rows may be shorter than A's)."""
     jb, tb = bundles(model, "CO", 0.05)
     widest = int((np.asarray(jb.tensors["A"]) != 0).sum(axis=1).max())
     for rmax, want_csr in ((widest, True), (widest - 1, False)):
@@ -87,16 +90,20 @@ def test_csr_format_path_matches_reference(model):
         t_eng = t_rt.DynasparseEngine(model=CHEAP_T, keep_codes=True,
                                       csr_rmax=rmax)
         j_out, _ = jb.run(j_eng)
-        t_out, _ = tb.run(t_eng)
+        t_env, _ = t_eng.run(tb.compiled, tb.tensors)
+        last = tb.compiled.graph.kernels[-1].out
+        t_out = t_env[last]
         assert_same_plans(j_eng, t_eng)
         np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **TOL)
-        aggs = [k.out for k in tb.compiled.graph.kernels
-                if k.name.endswith(".agg")]
-        assert all(t_eng.planned_formats[n] == int(want_csr) for n in aggs)
+        aggs = [k for k in tb.compiled.graph.kernels
+                if k.kernel_type == KernelType.AGGREGATE]
+        for k in aggs:
+            lhs = t_env[t_rt._agg_lhs_name(k)]
+            fits = int((lhs != 0).sum(dim=1).max()) <= rmax
+            assert t_eng.planned_formats[k.out] == int(want_csr or fits)
         fused = t_rt.FusedModelExecutor(model=CHEAP_T, keep_codes=True,
                                         csr_rmax=rmax)
         env, _ = fused.run(tb.compiled, tb.tensors)
-        last = tb.compiled.graph.kernels[-1].out
         assert torch.equal(env[last], t_out)
         for name, f in t_eng.planned_formats.items():
             assert int(fused.planned_formats[name]) == f
@@ -126,19 +133,3 @@ def test_per_kernel_engine_caches_executors():
     misses = eng.cache_misses
     tb.run(eng)
     assert eng.cache_misses == misses and eng.cache_hits >= misses
-
-
-def test_attention_kernels_are_not_ported_yet():
-    tb = t_gnn.build_dense("sgc", "CO", scale=0.05, device="cpu")
-    spec = t_gnn.make_model_spec("gat", tb.graph.spec.f_in, 8, 7)
-    from repro_torch.core import compiler
-    meta = compiler.GraphMeta("CO", tb.graph.spec.n_vertices,
-                              tb.graph.spec.n_edges, tb.graph.spec.f_in)
-    cm = compiler.compile_model(spec, meta, n_cc=7, align=16,
-                                on_chip_bytes=256 * 1024)
-    tensors = dict(tb.tensors)
-    tensors.update(t_gnn.tensors_from_reference(
-        t_gnn.init_weights(cm), "cpu"))
-    for engine in (t_rt.DynasparseEngine(), t_rt.FusedModelExecutor()):
-        with pytest.raises(NotImplementedError, match="ATTENTION"):
-            engine.run(cm, tensors)
