@@ -12,9 +12,12 @@ card at the shapes its path gives it, then drives the port's paths:
   against a float64 dense oracle (GCN, row-CSR and ``ops.matmul`` too);
 * GAT on the same graph (2 layers x 2 heads, slope 0.2, threshold 0.02):
   the masked edge-softmax kernel ``edge_softmax`` against its plain
-  version on layer 1 head 1's operands, then both engines under every
-  strategy and the row-CSR route, held to the JAX planner's histograms
-  and to a float64 oracle on the run's own attention support;
+  version on layer 1 head 1's operands, in float32 and bf16, its fused
+  block counts against ``tile_nnz`` of the alpha as stored (alpha's
+  SHA-256 recorded), then both engines under every strategy and the
+  row-CSR route, held to the JAX planner's histograms and to a float64
+  oracle on the run's own attention support, with 4 ``tile_nnz``
+  launches fewer per inference than when alpha was counted apart;
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
@@ -65,6 +68,7 @@ references.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -96,7 +100,16 @@ REF_GAT_CI_HIST = {"dynamic": [54837, 268, 85091, 0],
                    "s1": [0, 96932, 43264, 0], "s2": [0, 4, 140192, 0],
                    "gemm": [0, 140196, 0, 0]}
 REF_GAT_CI_CSR_HIST = [54837, 4, 84782, 573]
+# tile_nnz launches in the GAT windows when attention_adjacency counted
+# alpha with a tile_nnz launch of its own per head (the five inferences of
+# the strategy window; the two of the CSR window), from chip_smoke.py on an
+# NVIDIA H100 80GB HBM3, 700 W.  The edge_softmax kernel now counts alpha
+# itself: 4 launches fewer per inference.
+UNFUSED_GAT_TILE_NNZ = 130
+UNFUSED_GAT_CSR_TILE_NNZ = 46
 FLIP_DIST = 1e-6      # a support flip further than this from the threshold
+BF16_ALPHA_TOL = 2.0 ** -8   # one bf16 step at alpha in [0.5, 1), so at
+                      # least one step of every alpha <= 1
 
 RECORDS: list = []
 
@@ -831,11 +844,12 @@ def main() -> int:
 def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
               close) -> dict:
     """Phase 5b: GAT on full-size CiteSeer.  ``edge_softmax`` against its
-    plain version on layer 1 head 1's operands (and a small case with
-    empty rows); both engines under every strategy in one launch-count
-    window, held to the JAX planner's histograms and a float64 oracle; the
-    row-CSR route under CHEAP; one profiled fused inference.  Returns the
-    window's launch counts."""
+    plain version on layer 1 head 1's operands in float32 and bf16 (and a
+    small case with empty rows), its fused block counts against
+    ``tile_nnz`` of the alpha as stored; both engines under every strategy
+    in one launch-count window, held to the JAX planner's histograms and a
+    float64 oracle; the row-CSR route under CHEAP; one profiled fused
+    inference.  Returns the window's launch counts."""
     from repro_torch.core import analyzer, runtime
     from repro_torch.core.ir import KernelType
     from repro_torch.core.perf_model import Format, TPUCostModel
@@ -867,16 +881,22 @@ def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
               f"{dist} from the threshold")
         return n_
 
-    def alpha_agree(threshold):
-        """(max|err|, ok) of two alphas over the entries neither side
-        zeroed alone: a flip at the threshold is reported, not an error."""
+    def alpha_agree(threshold, block):
+        """(max|err|, ok) of two ``(alpha, counts)`` over the entries
+        neither alpha zeroed alone (a flip at the threshold is reported,
+        not an error); the kernel's counts must equal ``tile_nnz`` of its
+        own alpha at ``block``, and the plain ones where nothing flipped."""
         def compare(got, want, tol):
+            (got, got_c), (want, want_c) = got, want
             same = (got != 0) == (want != 0)
             g_, w_ = torch.where(same, got, 0.0), torch.where(same, want, 0.0)
             err = float((g_.double() - w_.double()).abs().max())
-            flip_report(f"edge_softmax vs plain, n={got.shape[0]}", got,
-                        want, threshold)
-            return err, close(g_, w_, tol)
+            flips = flip_report(f"edge_softmax vs plain, n={got.shape[0]}, "
+                                f"{got.dtype}", got, want, threshold)
+            counts_ok = bool(torch.equal(got_c, K.profile.tile_nnz(
+                got, block))) and (flips > 0 or bool(torch.equal(got_c,
+                                                                   want_c)))
+            return err, close(g_, w_, tol) and counts_ok
         return compare
 
     # the kernel on layer 1 head 1's operands (a warm-up inference makes
@@ -888,37 +908,59 @@ def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
     del warm
     n, f = Z.shape
     nnz = int(torch.count_nonzero(A))
+    ob = (att.scheme.n2, att.scheme.n2)      # the engines' out_block
 
-    def es():
-        return E.edge_softmax(A, Z, asrc, adst, slope=slope, threshold=thr)
+    def es(a_=A, z_=Z):
+        return E.edge_softmax(a_, z_, asrc, adst, slope=slope, threshold=thr,
+                              out_block=ob)
 
-    def es_plain():
-        return E.edge_softmax_plain(A, Z, asrc, adst, slope=slope,
-                                    threshold=thr)
+    def es_plain(a_=A, z_=Z):
+        return E.edge_softmax_plain(a_, z_, asrc, adst, slope=slope,
+                                    threshold=thr, out_block=ob)
 
-    got, want = es(), es_plain()
+    (got, got_c), (want, want_c) = es(), es_plain()
     torch.cuda.synchronize()
     n_flips = E.support_flips(got, want, thr)[0]   # reported by the entry
-    cg, cw = (K.profile.tile_nnz(t_, (16, 16)) for t_ in (got, want))
-    diff = int((cg - cw).abs().sum())
+    stored = K.profile.tile_nnz(got, ob)
+    check(bool(torch.equal(got_c, stored)), "edge_softmax: fused counts != "
+          f"tile_nnz of the alpha as stored at {ob}")
+    diff = int((got_c - want_c).abs().sum())
     check(diff == 0 if n_flips == 0 else diff <= n_flips,
           f"edge_softmax: tile counts differ by {diff} ({n_flips} flips)")
+    shape = E.edge_launch(n, ob)
     record("edge_softmax_support", case="A @ Z1h1", nnz_kernel=int(
         torch.count_nonzero(got)), nnz_plain=int(torch.count_nonzero(want)),
-        support=nnz, flips=n_flips, tile_counts_equal=diff == 0)
-    del got, want, cg, cw
+        support=nnz, flips=n_flips, out_block=list(ob),
+        counts_equal_tile_nnz=True, tile_counts_equal=diff == 0,
+        route=E.ROUTES[shape.route], launch=dataclasses.asdict(shape),
+        alpha_sha256=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest())
+    del got, want, got_c, want_c, stored
+    counts_bytes = 4.0 * -(-n // ob[0]) * -(-n // ob[1])
+    ops_ = 4.0 * n * f + 3.0 * n * n + 4.0 * nnz
     kernel_entry(
         "edge_softmax", "src/repro_torch/kernels/csrc/edge_softmax.cu",
         "src/repro/core/dynasparse.py:311 (jnp attention_adjacency; no "
         "pallas_call)", es, es_plain, None,
         # score, LeakyReLU and compare per element and both projections;
         # subtract, exp, add and divide per support entry.  Bytes: a read
-        # once, alpha written once, z and the vectors read once
-        (4.0 * n * f + 3.0 * n * n + 4.0 * nnz,
-         4.0 * (2 * n * n + n * f + 2 * f)),
-        lambda g, w: True, units="simt", compare=alpha_agree(thr),
+        # once, alpha and its counts written once, z and the vectors read
+        # once
+        (ops_, 4.0 * (2 * n * n + n * f + 2 * f) + counts_bytes),
+        lambda g, w: True, units="simt", compare=alpha_agree(thr, ob),
         lib_call="none: no single PyTorch call computes a thresholded "
                  "masked edge-softmax")
+    # bf16 A and Z1h1: alpha in bf16, the arithmetic in float32
+    A16, Z16 = A.bfloat16(), Z.bfloat16()
+    kernel_entry(
+        "edge_softmax (bf16 A and Z1h1)",
+        "src/repro_torch/kernels/csrc/edge_softmax.cu",
+        "src/repro/core/dynasparse.py:311 (jnp attention_adjacency; no "
+        "pallas_call)", lambda: es(A16, Z16), lambda: es_plain(A16, Z16),
+        None, (ops_, 2.0 * (2 * n * n + n * f) + 8.0 * f + counts_bytes),
+        lambda g, w: g[0].dtype == torch.bfloat16, tol=BF16_ALPHA_TOL,
+        line=False, units="simt", compare=alpha_agree(thr, ob),
+        lib_call="none")
+    del A16, Z16
     rng = np.random.default_rng(7)
     small = [torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
         rng.random((40, 40)) < 0.2, rng.normal(size=(40, 8)),
@@ -927,10 +969,12 @@ def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
     for t_ in (0.0, 0.6):
         small_checks("edge_softmax", [(
             f"n=40, five empty rows, threshold {t_}",
-            lambda t_=t_: E.edge_softmax(*small, threshold=t_),
-            lambda t_=t_: E.edge_softmax_plain(*small, threshold=t_))],
-            compare=alpha_agree(t_))
-        got = E.edge_softmax(*small, threshold=t_)
+            lambda t_=t_: E.edge_softmax(*small, threshold=t_,
+                                         out_block=(16, 16)),
+            lambda t_=t_: E.edge_softmax_plain(*small, threshold=t_,
+                                               out_block=(16, 16)))],
+            compare=alpha_agree(t_, (16, 16)))
+        got = E.edge_softmax(*small, threshold=t_)[0]
         check(not got[-5:].any() and not torch.isnan(got).any(),
               "edge_softmax: empty rows are not exactly zero")
 
@@ -950,6 +994,12 @@ def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
     check(counts["edge_softmax"] == 4 * engines,
           f"edge_softmax launched {counts['edge_softmax']} times, expected "
           f"4 per inference in {engines} inferences")
+    record("gat_tile_nnz_launches", window="strategies", inferences=engines,
+           tile_nnz=counts["tile_nnz"],
+           tile_nnz_with_unfused_counts=UNFUSED_GAT_TILE_NNZ)
+    check(counts["tile_nnz"] == UNFUSED_GAT_TILE_NNZ - 4 * engines,
+          f"GAT window launched tile_nnz {counts['tile_nnz']} times, "
+          f"expected {UNFUSED_GAT_TILE_NNZ} - 4 per inference")
     for name in ("edge_softmax", "dispatch", "gemm", "spdmm", "tile_nnz"):
         check(counts[name] > 0, f"GAT path never launched {name}")
     hist = {s_: h_ for s_, (_, h_, _) in runs.items()}
@@ -1025,6 +1075,12 @@ def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
     check(csr_counts["csr_spmm"] > 0, "GAT CSR route never launched csr_spmm")
     check(csr_counts["edge_softmax"] == 8, "GAT CSR route launched "
           f"edge_softmax {csr_counts['edge_softmax']} times, expected 8")
+    record("gat_tile_nnz_launches", window="csr", inferences=2,
+           tile_nnz=csr_counts["tile_nnz"],
+           tile_nnz_with_unfused_counts=UNFUSED_GAT_CSR_TILE_NNZ)
+    check(csr_counts["tile_nnz"] == UNFUSED_GAT_CSR_TILE_NNZ - 8,
+          f"GAT CSR window launched tile_nnz {csr_counts['tile_nnz']} "
+          f"times, expected {UNFUSED_GAT_CSR_TILE_NNZ} - 4 per inference")
     aggs = [k_.out for k_ in kernels if k_.kernel_type == KernelType.AGGREGATE]
     fmts = {k_: int(v) for k_, v in eng.planned_formats.items()}
     check(all(fmts[a_] == Format.CSR for a_ in aggs),

@@ -34,8 +34,9 @@ propagated writeback profiles and shares one ELL view across kernels.
 
 :func:`attention_adjacency` is GAT's attention kernel: the masked
 edge-softmax (``kernels/edge_softmax.py``, a CUDA kernel on the card)
-and its writeback profile, returned as a :class:`DynasparseResult` so
-both engines chain it like a matmul kernel.
+and its writeback profile, which the kernel counts as it writes alpha,
+returned as a :class:`DynasparseResult` so both engines chain it like a
+matmul kernel.
 """
 from __future__ import annotations
 
@@ -216,15 +217,16 @@ def attention_adjacency(
     over the support before weights ``<= threshold`` drop to exactly 0,
     and all-zero rows stay zero.  ``codes`` is the degenerate one-GEMM grid
     (the kernel's cost is one dense task), ``dens_x``/``dens_y`` ones, and
-    ``out_counts`` alpha's block counts at ``out_block``: what the head's
-    Aggregate plans from.  Both engines call this one function, so their
-    alpha is bitwise the same.
+    ``out_counts`` alpha's block counts at ``out_block``, which the
+    edge-softmax counts as it writes alpha: what the head's Aggregate
+    plans from.  Both engines call this one function, so their alpha is
+    bitwise the same.
     """
     m = a.shape[0]
     dev = a.device
-    alpha = _ops.edge_softmax(a, z, att_src, att_dst, slope=slope,
-                              threshold=threshold)
-    out_counts = profiler.block_counts(alpha, out_block)
+    alpha, out_counts = _ops.edge_softmax(a, z, att_src, att_dst,
+                                          slope=slope, threshold=threshold,
+                                          out_block=tuple(out_block))
     out_density = profiler.density_from_counts(out_counts, m, m, *out_block)
     one = torch.ones((1, 1), dtype=torch.float32, device=dev)
     codes = torch.full((1, 1, 1), int(Primitive.GEMM), dtype=torch.int32,

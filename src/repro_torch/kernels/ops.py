@@ -117,9 +117,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def edge_softmax(a: torch.Tensor, z: torch.Tensor, att_src: torch.Tensor,
                  att_dst: torch.Tensor, *, slope: float = 0.2,
-                 threshold: float = 0.0) -> torch.Tensor:
+                 threshold: float = 0.0,
+                 out_block: Tuple[int, int] = (128, 128)
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GAT's thresholded masked edge-softmax over ``a``'s support (the
-    reference's ``attention_adjacency`` body), on contiguous operands."""
+    reference's ``attention_adjacency`` body) on contiguous operands:
+    ``(alpha, counts)``, the counts of alpha's nonzeros per ``out_block``
+    tile."""
     return _edge.edge_softmax(a.contiguous(), z.contiguous(),
                               att_src.contiguous(), att_dst.contiguous(),
-                              slope=slope, threshold=threshold)
+                              slope=slope, threshold=threshold,
+                              out_block=out_block)

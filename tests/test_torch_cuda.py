@@ -512,6 +512,10 @@ def test_bf16_static_strategies_run_on_dispatch(cuda, strategy, block):
 # -- GAT's masked edge-softmax ------------------------------------------------
 
 FLIP_DIST = 1e-6      # a support flip further than this from the threshold
+OUT_BLOCKS = [(16, 16), (32, 16), (128, 128), (16, 48)]
+BF16_CASES = {"bf16 a": (torch.bfloat16, torch.float32),
+              "bf16 z": (torch.float32, torch.bfloat16),
+              "bf16 a and z": (torch.bfloat16, torch.bfloat16)}
 
 
 def attention_operands(seed, n, f, density, device):
@@ -522,22 +526,41 @@ def attention_operands(seed, n, f, density, device):
     return [torch.from_numpy(v).to(device) for v in (a, z, att[0], att[1])]
 
 
-def assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold):
-    """alpha within 3e-4 of the plain version; any support flip within
-    1e-6 of the threshold; equal tile counts where no entry flipped."""
+def assert_within_one_bf16_step(got, want):
+    """|got - want| at most one bf16 step of ``want`` (its spacing at
+    ``want``'s binade) wherever both are nonzero."""
+    both = (got != 0) & (want != 0)
+    g, w = got.float()[both], want.float()[both]
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    assert bool(((g - w).abs() <= step).all()), float((g - w).abs().max())
+
+
+def assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold,
+                                      out_block=(16, 16)):
+    """alpha within 3e-4 of the plain version (one bf16 step where alpha
+    is bf16); any support flip within 1e-6 of the threshold; the kernel's
+    counts equal ``tile_nnz`` of its own alpha exactly, and the plain
+    version's where no entry flipped."""
     before = K.edge_softmax.launches
-    got = K.edge_softmax.edge_softmax(a, z, asrc, adst, threshold=threshold)
-    want = K.edge_softmax.edge_softmax_plain(a, z, asrc, adst,
-                                             threshold=threshold)
+    got, counts = K.edge_softmax.edge_softmax(a, z, asrc, adst,
+                                              threshold=threshold,
+                                              out_block=out_block)
+    want, want_counts = K.edge_softmax.edge_softmax_plain(
+        a, z, asrc, adst, threshold=threshold, out_block=out_block)
     assert K.edge_softmax.launches == before + 1
-    torch.testing.assert_close(got, want, **TOL)
+    assert got.dtype == want.dtype == torch.promote_types(a.dtype, z.dtype)
     flips, dist = K.edge_softmax.support_flips(got, want, threshold)
     assert dist <= FLIP_DIST, (flips, dist)
+    if got.dtype == torch.bfloat16:
+        assert_within_one_bf16_step(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+    assert counts.dtype == torch.int32
+    assert torch.equal(counts, K.profile.tile_nnz(got, out_block))
     if flips == 0:
-        assert torch.equal(K.profile.tile_nnz(got, (16, 16)),
-                           K.profile.tile_nnz_plain(want, (16, 16)))
+        assert torch.equal(counts, want_counts)
     assert not torch.isnan(got).any()
-    empty = a.sum(dim=1) == 0
+    empty = a.float().sum(dim=1) == 0
     assert not got[empty].any()
     return got
 
@@ -556,6 +579,17 @@ def test_edge_softmax_matches_plain(cuda, n, threshold):
                                    atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("out_block", OUT_BLOCKS)
+@pytest.mark.parametrize("n", [1, 31, 40, 1000, 3327])
+def test_edge_softmax_counts_equal_tile_nnz(cuda, n, out_block):
+    """The fused counts at every ``out_block`` the engines and tests use,
+    ragged last tiles included: ``tile_nnz`` of the alpha as stored."""
+    a, z, asrc, adst = attention_operands(n + 5, n, 16,
+                                          min(1.0, 24.0 / n), cuda)
+    a[n // 3] = 0.0
+    assert_edge_softmax_matches_plain(a, z, asrc, adst, 0.02, out_block)
+
+
 @pytest.mark.parametrize("threshold", [0.0, 0.02, 0.6])
 @pytest.mark.parametrize("f", [1, 6, 16, 64])
 def test_edge_softmax_widths_and_a_long_row(cuda, f, threshold):
@@ -564,6 +598,116 @@ def test_edge_softmax_widths_and_a_long_row(cuda, f, threshold):
     a[8, :1100] = 0.5
     a[9] = 0.0
     assert_edge_softmax_matches_plain(a, z, asrc, adst, threshold)
+
+
+def sparse_square(seed, n, per_row, dense_rows, device,
+                  dtype=torch.float32):
+    """An (n, n) support of about ``per_row`` entries a row, made on the
+    card from seeded numpy indices, with the rows ``dense_rows`` full and
+    row n // 2 empty."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rng.integers(0, n, size=rows.size)
+    a = torch.zeros((n, n), dtype=dtype, device=device)
+    a[torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)] \
+        = 1.0
+    a[list(dense_rows)] = 0.5
+    a[n // 2] = 0.0
+    return a
+
+
+def plain_rows(a, z, asrc, adst, rows, threshold, slope=0.2):
+    """The plain formula (``edge_softmax_plain``) on ``rows`` of alpha
+    only: each row needs every s_dst but only its own row of a."""
+    att = torch.cat([asrc, adst], dim=1).float()
+    s = (z.float()[:, :, None] * att[None]).sum(dim=1)
+    sc = s[rows, :1] + s[:, 1:2].T
+    sc = torch.where(sc >= 0, sc, slope * sc)
+    sup = a[rows] != 0
+    mx = torch.where(sup, sc, float("-inf")).amax(dim=1, keepdim=True)
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    ex = torch.where(sup, torch.exp(sc - mx), 0.0)
+    al = ex / torch.clamp(ex.sum(dim=1, keepdim=True), min=1e-30)
+    return torch.where(al > threshold, al, 0.0)
+
+
+@pytest.mark.parametrize("out_block", [(16, 16), (32, 1)])
+@pytest.mark.parametrize("n,route", [(8192, "list"), (9000, "list"),
+                                     (20000, "list"), (40000, "reread")])
+def test_edge_softmax_long_rows_on_each_route(cuda, n, route, out_block):
+    """Long rows on each route (chunks with support listed in shared
+    memory, s_dst staged there up to 16384 columns and not beyond; or a
+    re-read of a), a few of them dense; at (32, 1) the counters exceed
+    shared memory and count into device memory.  Up to 9000 columns
+    against the whole plain version; at 20000 and 40000 (a is 1.6 and 6.4
+    GB) against the plain formula on the dense, empty and a few sparse
+    rows."""
+    E = K.edge_softmax
+    assert E.ROUTES[E.edge_launch(n, out_block).route] == route
+    dense = (0, 7, n - 1)
+    a = sparse_square(n, n, 6, dense, cuda)
+    rng = np.random.default_rng(n + 1)
+    z, asrc, adst = (torch.from_numpy(v.astype(np.float32)).to(cuda)
+                     for v in (rng.normal(size=(n, 16)),
+                               rng.normal(size=(16, 1)),
+                               rng.normal(size=(16, 1))))
+    if n <= 9000:
+        got = assert_edge_softmax_matches_plain(a, z, asrc, adst, 0.0,
+                                                out_block)
+        torch.testing.assert_close(got[list(dense)].sum(dim=1),
+                                   torch.ones(3, device=cuda), atol=1e-5,
+                                   rtol=0)
+        return
+    before = E.launches
+    got, counts = E.edge_softmax(a, z, asrc, adst, threshold=0.0,
+                                 out_block=out_block)
+    assert E.launches == before + 1
+    assert torch.equal(counts, K.profile.tile_nnz(got, out_block))
+    rows = [0, 7, 1, 999, n // 2, n - 9, n - 1]
+    torch.testing.assert_close(got[rows], plain_rows(a, z, asrc, adst, rows,
+                                                     0.0), **TOL)
+    assert int(counts.sum()) == int(torch.count_nonzero(got))
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.02, 0.6])
+@pytest.mark.parametrize("n", [40, 1000, 3327])
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_edge_softmax_bf16_matches_plain(cuda, case, n, threshold):
+    """bf16 ``a`` and/or ``z`` (and attention vectors with ``z``) on the
+    kernel: alpha in the promoted type, within one bf16 step of the plain
+    version when bf16, counts exact."""
+    a_t, z_t = BF16_CASES[case]
+    a, z, asrc, adst = attention_operands(n + 11, n, 16,
+                                          min(1.0, 8.0 / n), cuda)
+    a[n // 2] = 0.0
+    for ob in ((16, 16), (16, 48)):
+        assert_edge_softmax_matches_plain(a.to(a_t), z.to(z_t),
+                                          asrc.to(z_t), adst.to(z_t),
+                                          threshold, ob)
+
+
+def test_edge_softmax_bf16_counts_the_value_after_the_cast(cuda):
+    """A float32 alpha of about 3.7e-44 (a denormal above threshold 0)
+    rounds to 0 in bf16: the bf16 counts leave it out, as ``tile_nnz``
+    of the stored alpha does."""
+    n = 40
+    a = torch.zeros((n, n), device=cuda)
+    a[0, 1] = a[0, 2] = 1.0
+    a[1:, 0] = 1.0
+    z = torch.zeros((n, 1), device=cuda)
+    z[2, 0] = 100.0                   # score 100 against 0 in row 0
+    one = torch.ones((1, 1), device=cuda)
+    f32, c32 = K.edge_softmax.edge_softmax(a, z, one, one, threshold=0.0,
+                                           out_block=(16, 16))
+    b16, c16 = K.edge_softmax.edge_softmax(a.bfloat16(), z.bfloat16(), one,
+                                           one, threshold=0.0,
+                                           out_block=(16, 16))
+    assert b16.dtype == torch.bfloat16 and float(b16[0, 1]) == 0.0
+    assert torch.equal(c16, K.profile.tile_nnz(b16, (16, 16)))
+    assert torch.equal(c32, K.profile.tile_nnz(f32, (16, 16)))
+    assert int(c16[0, 0]) == int(c32[0, 0]) - int(f32[0, 1] != 0)
+    assert_edge_softmax_matches_plain(a.bfloat16(), z.bfloat16(), one, one,
+                                      0.0)
 
 
 @pytest.mark.parametrize("threshold", [0.0, 0.02, 0.6])
@@ -575,10 +719,14 @@ def test_edge_softmax_all_zero_adjacency(cuda, threshold):
 
 def test_edge_softmax_raises_on_what_it_does_not_take(cuda):
     a, z, asrc, adst = attention_operands(4, 64, 8, 0.1, cuda)
-    with pytest.raises(ValueError):
-        K.edge_softmax.edge_softmax(a.bfloat16(), z, asrc, adst)
+    # bf16 a runs on the kernel (it was refused before the bf16 routes)
+    got = assert_edge_softmax_matches_plain(a.bfloat16(), z, asrc, adst,
+                                            0.02)
+    assert got.dtype == torch.float32
     with pytest.raises(ValueError):
         K.edge_softmax.edge_softmax(a, z.double(), asrc, adst)
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a.double(), z, asrc, adst)
     with pytest.raises(ValueError):
         K.edge_softmax.edge_softmax(a[:, :63], z, asrc, adst)
     with pytest.raises(ValueError):
@@ -587,6 +735,8 @@ def test_edge_softmax_raises_on_what_it_does_not_take(cuda):
         K.edge_softmax.edge_softmax(a, z, asrc[:, 0], adst)
     with pytest.raises(ValueError):
         K.edge_softmax.edge_softmax(a, z, asrc, adst[:7])
+    with pytest.raises(ValueError):
+        K.edge_softmax.edge_softmax(a, z, asrc, adst, out_block=(0, 16))
 
 
 def test_gat_fused_equals_per_kernel_on_the_card(cuda):

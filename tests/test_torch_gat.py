@@ -113,11 +113,125 @@ def test_attention_threshold_drops_to_exact_zero():
 def test_ops_edge_softmax_on_cpu_is_the_plain_version():
     a, z, asrc, adst = map(torch.from_numpy, operands(40, 8, seed=4))
     before = t_edge.launches
-    got = ops.edge_softmax(a.T, z, asrc, adst, threshold=0.02)
-    want = t_edge.edge_softmax_plain(a.T.contiguous(), z, asrc, adst,
-                                     threshold=0.02)
+    got, got_counts = ops.edge_softmax(a.T, z, asrc, adst, threshold=0.02,
+                                       out_block=(16, 16))
+    want, want_counts = t_edge.edge_softmax_plain(
+        a.T.contiguous(), z, asrc, adst, threshold=0.02, out_block=(16, 16))
     assert torch.equal(got, want)
+    assert torch.equal(got_counts, want_counts)
     assert t_edge.launches == before
+
+
+DTYPE_CASES = {"f32": (np.float32, np.float32), "bf16 a": ("bf16", None),
+               "bf16 z": (None, "bf16"), "bf16 a and z": ("bf16", "bf16")}
+
+
+def cast_operands(args, case):
+    """The operands in both packages, ``a`` and/or ``z`` (and the
+    attention vectors with ``z``) rounded to bf16 from the same float32
+    values."""
+    a_t, z_t = DTYPE_CASES[case]
+    jx = [jnp.asarray(v) for v in args]
+    tx = [torch.from_numpy(v) for v in args]
+    for idx in ([0] if a_t == "bf16" else []) + ([1, 2, 3] if z_t == "bf16"
+                                                 else []):
+        jx[idx] = jx[idx].astype(jnp.bfloat16)
+        tx[idx] = tx[idx].bfloat16()
+    return jx, tx
+
+
+@pytest.mark.parametrize("case", list(DTYPE_CASES))
+@pytest.mark.parametrize("out_block", [(16, 16), (32, 16), (128, 128),
+                                       (16, 48)])
+@pytest.mark.parametrize("threshold", [0.0, 0.05, 0.6])
+@pytest.mark.parametrize("n", [40, 37])
+def test_plain_alpha_and_counts_match_reference(n, threshold, out_block,
+                                                case):
+    """The plain ``(alpha, counts)`` against the reference's
+    ``attention_adjacency`` (``out``, ``out_counts``): counts exactly,
+    alpha within 3e-4 in the promoted type, for float32 and bf16
+    ``a``/``z``."""
+    args = operands(n, 8, seed=7 * n + 1)
+    rng = np.random.default_rng(n)
+    args = (args[0] * rng.random(args[0].shape).astype(np.float32),
+            *args[1:])                      # a normalized-looking support
+    jx, tx = cast_operands(args, case)
+    kw = dict(slope=0.2, threshold=threshold, out_block=out_block)
+    j = j_attention(*jx, **kw)
+    alpha, counts = t_edge.edge_softmax_plain(*tx, **kw)
+    want = np.asarray(j.out.astype(jnp.float32))
+    flips, dist = t_edge.support_flips(alpha.float(),
+                                       torch.from_numpy(want.copy()), threshold)
+    assert flips == 0, f"{flips} support flips, all within {dist}"
+    assert alpha.dtype == torch.promote_types(tx[0].dtype, tx[1].dtype)
+    assert str(alpha.dtype).split(".")[-1] == str(j.out.dtype)
+    np.testing.assert_allclose(alpha.float().numpy(), want, **ALPHA_TOL)
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(j.out_counts))
+    assert counts.shape == (-(-n // out_block[0]), -(-n // out_block[1]))
+
+
+def test_attention_adjacency_takes_the_counts_from_the_edge_softmax(
+        monkeypatch):
+    """No ``profiler.block_counts`` of alpha beside the edge-softmax's
+    own counting (its plain version's one ``tile_nnz_plain``)."""
+    from repro_torch.core import dynasparse as t_dyn
+    from repro_torch.core import profiler as t_prof
+    calls = {"block_counts": 0, "tile_nnz_plain": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(t_prof, "block_counts",
+                        counted("block_counts", t_prof.block_counts))
+    monkeypatch.setattr(t_edge, "tile_nnz_plain",
+                        counted("tile_nnz_plain", t_edge.tile_nnz_plain))
+    args = operands(40, 8, seed=5)
+    res = t_dyn.attention_adjacency(*map(torch.from_numpy, args),
+                                    threshold=0.05, out_block=(16, 16))
+    assert calls == {"block_counts": 0, "tile_nnz_plain": 1}
+    j = j_attention(*map(jnp.asarray, args), threshold=0.05,
+                    out_block=(16, 16))
+    np.testing.assert_array_equal(res.out_counts.numpy(),
+                                  np.asarray(j.out_counts))
+
+
+@pytest.mark.parametrize("n,route", [(1, "list"), (3327, "list"),
+                                     (8192, "list"), (8193, "list"),
+                                     (9000, "list"), (19717, "list"),
+                                     (32768, "list"), (32769, "reread"),
+                                     (40000, "reread"), (232965, "reread")])
+@pytest.mark.parametrize("out_block", [(16, 16), (32, 16), (128, 128),
+                                       (16, 48), (1, 1)])
+def test_edge_launch_shape(n, route, out_block):
+    """Each tile row's rows are covered once, by warps of CTAs that stay
+    inside it; shared memory holds what the shape says and fits the H100;
+    the counts start from zero exactly when several CTAs share a tile
+    row or the counters do not fit."""
+    s = t_edge.edge_launch(n, out_block)
+    bm, bn = out_block
+    assert t_edge.ROUTES[s.route] == route
+    assert 1 <= s.rows <= t_edge.MAX_ROWS and s.rows <= bm
+    assert (s.chunks - 1) * s.rows < bm <= s.chunks * s.rows
+    covered = np.zeros(n, dtype=np.int64)
+    for b in range(-(-n // bm) * s.chunks):     # the kernel's grid
+        ti, ch = divmod(b, s.chunks)
+        r0 = ti * bm + ch * s.rows
+        rows = np.arange(r0, min(r0 + s.rows, (ti + 1) * bm, n))
+        assert ((rows // bm) == ti).all()
+        covered[rows] += 1
+    assert (covered == 1).all()
+    nb = -(-n // bn)
+    assert s.stage_dst == (n <= t_edge.STAGE_COLS)
+    assert s.smem_counts == (nb <= t_edge.COUNT_TILES)
+    lists = s.rows * (8 * -(-n // 32) + 16) if route == "list" else 0
+    assert s.smem_bytes == (lists + 4 * n * s.stage_dst
+                            + 4 * nb * s.smem_counts)
+    assert s.smem_bytes <= 227 * 1024
+    assert s.zero_counts == (s.chunks > 1 or not s.smem_counts)
 
 
 @pytest.mark.parametrize("shapes", [((4, 5), (4, 3), (3, 1), (3, 1)),
