@@ -18,6 +18,19 @@ card at the shapes its path gives it, then drives the port's paths:
   row-CSR route, held to the JAX planner's histograms and to a float64
   oracle on the run's own attention support, with 4 ``tile_nnz``
   launches fewer per inference than when alpha was counted apart;
+* batched graph serving (``GraphServeEngine.serve``): the batched
+  ``tile_nnz`` route (one launch per stack, grid z the slot) against
+  per-slot 2-D launches and its plain version, exactly; the reference's
+  serving stream (``benchmarks/bench_serving.py``: 16 requests of
+  56/100/150 vertices, f_in 64, waves of 4) through all five models,
+  SAGE's static strategies and GCN's row-CSR route, each == ``run_naive``
+  bitwise with one walk plan per bucket, one batched launch per (request
+  input, granularity) per wave, no host synchronization inside
+  ``launch_batch`` and all-SKIP dummy slots; then SAGE at CiteSeer's
+  widths (12 requests up to 3327 vertices, 3703 features, buckets 1024 /
+  2048 / 4096), == ``run_naive`` bitwise and within 2e-4 of a float64
+  oracle per request, with wave walls, gather and copy times, device
+  busy and requests/s served and naive;
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
@@ -771,6 +784,10 @@ def main() -> int:
     gat_counts = gat_phase(torch, np, K, dev, card, kernel_entry,
                            small_checks, close)
 
+    # ---------------- phase 5c: batched graph serving -------------------
+    serve_counts = serving_phase(torch, np, K, dev, card, kernel_entry,
+                                 small_checks, close)
+
     # ---------------- phase 6: the per-primitive path (ops.matmul) --------
     K.reset_launch_counts()
     for prim in (Primitive.GEMM, Primitive.SPDMM, Primitive.SPMM):
@@ -827,7 +844,9 @@ def main() -> int:
         lm_counts["score"]["flash_attention"]
     kernels_line[LM_DISPATCH]["launches"] = lm_counts["serve"]["dispatch"]
     kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
-    check(set(K.KERNEL_MODULES) | {LM_DISPATCH} == set(kernels_line)
+    kernels_line["tile_nnz_batched"]["launches"] = \
+        serve_counts["tile_nnz_batched"]
+    check(set(K.launch_counts()) | {LM_DISPATCH} == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
     out_dir = ROOT / "chiprun_out"
@@ -1112,6 +1131,416 @@ def gat_phase(torch, np, K, dev, card, kernel_entry, small_checks,
     record("profile", model="gat", engine="fused", collect_report=False,
            card=card, **profile_device(torch, lambda: fx.run(cm, tensors),
                                        top=15))
+    return counts
+
+
+STREAM_F_IN, STREAM_SIZES, STREAM_SEED = 64, (56, 100, 150), 7
+# benchmarks/bench_serving.py:105-106,158-162: the reference's own serving
+# stream (hidden 16, 7 classes, weight seed 0; BENCH_serving.json's rows
+# serve 16 requests in waves of 4)
+STREAM_REQUESTS, STREAM_SLOTS = 16, 4
+# SAGE at CiteSeer's widths (data/graphs.py TABLE_VI["CI"]): CiteSeer's
+# average degree and feature density (random_requests floors the latter
+# at 0.02), sizes up to CiteSeer's 3327 vertices
+CI_SIZES, CI_REQUESTS, CI_DEGREE, CI_FEAT = (900, 1800, 3327), 12, 3, 0.0085
+CI_F_IN, CI_CLASSES, CI_BUCKETS = 3703, 6, [1024, 2048, 4096]
+
+
+def serving_phase(torch, np, K, dev, card, kernel_entry, small_checks,
+                  close) -> dict:
+    """Phase 5c: batched graph serving (``GraphServeEngine.serve``).
+
+    The batched ``tile_nnz`` route against per-slot 2-D launches and its
+    plain version; (a) the reference's serving stream through all five
+    models under ``dynamic``, SAGE under the static strategies and GCN on
+    the row-CSR route: serve == run_naive bitwise, one walk plan per
+    bucket, one batched launch per (request input, granularity) per wave
+    with no host synchronization inside ``launch_batch``, dummy slots all
+    SKIP; (b) SAGE at CiteSeer's widths: bitwise == run_naive, a float64
+    oracle per request, per-request histograms, wave walls, copy and
+    gather times, device busy and requests/s.  Returns the launch counts
+    of (b)'s serve window."""
+    import warnings
+    from repro_torch.core import runtime
+    from repro_torch.core.ir import KernelType
+    from repro_torch.core.perf_model import Format, TPUCostModel
+    from repro_torch.data import graphs as graph_data
+    from repro_torch.serving.graph_engine import (GraphServeEngine,
+                                                  random_requests)
+    P = K.profile
+
+    # ---- the batched tile_nnz route: exact, per slot and against plain --
+    rng = np.random.default_rng(19)
+    for b_, m_, n_ in ((1, 100, 130), (3, 700, 1500), (4, 333, 77)):
+        x = rng.normal(size=(b_, m_, n_)) * (rng.random((b_, m_, n_)) < 0.05)
+        x[b_ // 2] = 0.0                              # a dummy slot
+        xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+        for tile in ((16, 16), (64, 16), (32, 1)):
+            before = P.batched_launches
+            got = P.tile_nnz_batched(xt, tile)
+            check(P.batched_launches == before + 1,
+                  "tile_nnz_batched: not one launch per stack")
+            per_slot = torch.stack([P.tile_nnz(xt[i], tile)
+                                    for i in range(b_)])
+            ok = (bool(torch.equal(got, per_slot)) and bool(torch.equal(
+                got, P.tile_nnz_plain(xt, tile))) and not got[b_ // 2].any())
+            check(ok, f"tile_nnz_batched ({b_}, {m_}, {n_}) at {tile}: "
+                      "counts differ from the per-slot 2-D launches or "
+                      "the plain version")
+            record("kernel_case", kernel="tile_nnz_batched",
+                   case=f"({b_}, {m_}, {n_}) at {tile}, slot {b_ // 2} "
+                        "all zero", equal_per_slot_2d=True,
+                   equal_plain=True, max_abs_err=0.0, tol=0)
+    del xt, got, per_slot
+
+    # ---- (a) the reference's serving stream ------------------------------
+    cheap = dataclasses.replace(TPUCostModel(), eff_transform=1.0,
+                                transform_overhead_s=0.0)
+    reqs = random_requests(STREAM_REQUESTS, f_in=STREAM_F_IN,
+                           sizes=STREAM_SIZES, seed=STREAM_SEED)
+
+    def watch(eng, waves):
+        """Per-wave checks through the engine's own entry points: the
+        batched launches and host synchronizations of each launch_batch,
+        and after each finish the dummy slots' codes, the slots' planned
+        codes and formats and the report.  Returns the function that puts
+        the engine's own entry points back."""
+        launch, finish = eng.executor.launch_batch, eng.finish_wave
+
+        def launch_batch(cm, shared, batched):
+            flows = runtime.FusedModelExecutor._resolved_flows(cm)
+            needed = [n_ for n_, _ in runtime.FusedModelExecutor
+                      ._needed_inputs(flows) if n_ in batched]
+            before = P.batched_launches
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    pending = launch(cm, shared, batched)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = [str(w_.message)[:120] for w_ in caught
+                     if "ynchroniz" in str(w_.message)]
+            waves.append({"slots": pending.wave_slots,
+                          "batched_launches": P.batched_launches - before,
+                          "request_inputs": len(needed),
+                          "host_syncs": syncs})
+            return pending
+
+        def finish_wave(inflight):
+            res = finish(inflight)
+            rep = eng.last_wave_report
+            waves[-1].update(bucket=inflight.bucket, real=rep.wave_real,
+                             wall_s=rep.fused_wall_seconds,
+                             gather_s=rep.gather_seconds,
+                             copy_s=rep.copy_seconds, report=rep)
+            if eng.executor.keep_codes:
+                waves[-1].update(requests=inflight.wave,
+                                 codes=dict(eng.executor.planned_codes),
+                                 formats=dict(eng.executor.planned_formats))
+                kernels = eng._compiled[inflight.bucket].graph.kernels
+                waves[-1]["dummy_all_skip"] = all(
+                    not eng.executor.planned_codes[k_.out][rep.wave_real:]
+                    .any() for k_ in kernels
+                    if k_.kernel_type != KernelType.ATTENTION)
+            return res
+
+        eng.executor.launch_batch = launch_batch
+        eng.finish_wave = finish_wave
+
+        def unwatch():
+            del eng.executor.launch_batch, eng.finish_wave
+        return unwatch
+
+    def own_plans(eng, waves):
+        """Hold every real slot's planned codes and executed formats to a
+        per-request ``DynasparseEngine`` run on the same padded tensors,
+        exactly; returns the per-request reports, in wave order."""
+        per = runtime.DynasparseEngine(
+            strategy=eng.strategy, model=eng.executor.model, n_cc=eng.n_cc,
+            keep_codes=True, format_aware=eng.format_aware,
+            csr_rmax=eng.csr_rmax)
+        reports = []
+        for w_ in waves:
+            cm = eng._compiled[w_["bucket"]]
+            for b_, req in enumerate(w_["requests"]):
+                tensors = dict(eng.weights)
+                tensors.update({k_: torch.from_numpy(v).to(dev) for k_, v
+                                in eng._padded(req, w_["bucket"]).items()})
+                _, rep = per.run(cm, tensors)
+                reports.append(rep)
+                check(per.planned_codes.keys() == w_["codes"].keys(),
+                      "a wave planned other kernels than a request alone")
+                for out, codes in per.planned_codes.items():
+                    check(np.array_equal(w_["codes"][out][b_], codes)
+                          and int(w_["formats"][out][b_])
+                          == per.planned_formats[out],
+                          f"request {req.request_id}: slot {b_} of its "
+                          f"wave planned {out} otherwise than the request "
+                          "alone")
+        return reports
+
+    runs = [(m_, "dynamic", None, STREAM_SLOTS) for m_ in
+            ("gcn", "sage", "gin", "sgc", "gat")]
+    runs += [("sage", s_, None, STREAM_SLOTS) for s_ in ("s1", "s2", "gemm")]
+    runs += [("gcn", "dynamic", cheap, STREAM_SLOTS), ("sage", "dynamic",
+                                                      None, 3)]
+    stream = []
+    for model, strategy, cost, slots in runs:
+        eng = GraphServeEngine(model, f_in=STREAM_F_IN, hidden=16,
+                               n_classes=7, slots=slots, weight_seed=0,
+                               strategy=strategy, cost_model=cost,
+                               keep_codes=True, device=dev)
+        waves = []
+        watch(eng, waves)
+        K.reset_launch_counts()
+        served = eng.serve(reqs)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        naive = eng.run_naive(reqs)
+        label = (f"{model} {strategy}" + (" CSR" if cost else "")
+                 + f" slots={slots}")
+        bitwise = all(np.array_equal(a_.logits, b_.logits)
+                      for a_, b_ in zip(served, naive))
+        check(bitwise, f"serve != run_naive ({label})")
+        check(eng.executor.trace_count == len(eng.buckets),
+              f"{label}: {eng.executor.trace_count} walk plans for "
+              f"{len(eng.buckets)} buckets")
+        own = len(own_plans(eng, waves))
+        check(own == STREAM_REQUESTS, f"{label}: {own} slots held to a "
+              "per-request plan")
+        for w_ in waves:
+            check(w_["batched_launches"] == w_["request_inputs"],
+                  f"{label}: {w_['batched_launches']} batched tile_nnz "
+                  f"launches in a wave of {w_['request_inputs']} request "
+                  "inputs")
+            check(not w_["host_syncs"], f"{label}: launch_batch "
+                  f"synchronized with the host: {w_['host_syncs']}")
+            # a static strategy fixes its primitives whatever the data;
+            # under dynamic an all-zero dummy slot plans nothing
+            check(strategy != "dynamic" or w_["dummy_all_skip"],
+                  f"{label}: a dummy slot planned work")
+        check(counts["tile_nnz_batched"] == sum(
+            w_["request_inputs"] for w_ in waves),
+            f"{label}: batched launches {counts['tile_nnz_batched']}")
+        if cost is not None:
+            check(counts["csr_spmm"] > 0, f"{label}: csr_spmm never ran")
+            check(any((f_ == Format.CSR).any() for f_ in
+                      eng.executor.planned_formats.values()),
+                  f"{label}: no kernel ran row-CSR")
+        stream.append({"run": label, "buckets": eng.buckets,
+                       "dummy_all_skip": all(w_["dummy_all_skip"]
+                                             for w_ in waves),
+                       "waves": len(waves), "traces": eng.executor.trace_count,
+                       "launches": counts, "bitwise_naive": bitwise,
+                       "codes_equal_per_request": own,
+                       "wave_loads": [[w_["real"], w_["slots"]]
+                                      for w_ in waves]})
+        del eng, served, naive
+    record("serving_stream", requests=STREAM_REQUESTS, f_in=STREAM_F_IN,
+           sizes=list(STREAM_SIZES), seed=STREAM_SEED, runs=stream,
+           host_syncs_in_launch_batch=0,
+           sync_detection="torch.cuda.set_sync_debug_mode('warn')")
+
+    # ---- (b) full width: SAGE at CiteSeer's widths ----------------------
+    t0 = time.perf_counter()
+    reqs = random_requests(CI_REQUESTS, f_in=CI_F_IN, sizes=CI_SIZES, seed=0,
+                           avg_degree=CI_DEGREE, feat_density=CI_FEAT)
+    make_s = time.perf_counter() - t0
+    eng = GraphServeEngine("sage", f_in=CI_F_IN, hidden=16,
+                           n_classes=CI_CLASSES,
+                           slots=4, min_bucket=64, device=dev)
+    buckets = sorted({eng.bucket_for(r_.n_vertices) for r_ in reqs})
+    check(buckets == CI_BUCKETS, f"full-width buckets {buckets}")
+    top = buckets[-1]
+    waves = []
+    unwatch = watch(eng, waves)
+    served = eng.serve(reqs)                          # warm
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    waves.clear()
+    served = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    waves_window = list(waves)
+    record("serving_full_width_launches", counts=counts,
+           waves=len(waves), per_wave=[
+               {k_: w_[k_] for k_ in ("bucket", "real", "slots",
+                                      "batched_launches")}
+               for w_ in waves])
+    for name in ("tile_nnz_batched", "tile_nnz", "dispatch"):
+        check(counts[name] > 0, f"full-width serving never launched {name}")
+    check(all(not w_["host_syncs"] and w_["batched_launches"]
+              == w_["request_inputs"] for w_ in waves),
+          "full-width serving: a wave synchronized or miscounted")
+    naive = eng.run_naive(reqs)
+    check(all(np.array_equal(a_.logits, b_.logits)
+              for a_, b_ in zip(served, naive)),
+          "full-width serve != run_naive")
+    errs = []
+    w64 = {k_: v.double() for k_, v in eng.weights.items()}
+    for req, res in zip(reqs, served):
+        pad = {k_: torch.from_numpy(v).to(dev).double()
+               for k_, v in eng._padded(req, res.bucket).items()}
+        a_, h0 = pad["A_mean"], pad["H0"]
+        h = torch.relu(a_ @ (h0 @ w64["Wneigh1"]) + h0 @ w64["Wself1"])
+        want = (a_ @ (h @ w64["Wneigh2"]) + h @ w64["Wself2"])
+        want = want[: req.n_vertices]
+        got = torch.from_numpy(res.logits).to(dev)
+        check(bool(torch.isfinite(got).all()) and tuple(got.shape)
+              == (req.n_vertices, CI_CLASSES), "full-width logits malformed")
+        errs.append(float((got.double() - want).abs().max()))
+        check(close(got, want, MODEL_TOL), f"full-width request "
+              f"{req.request_id} vs float64 oracle: max|err|={errs[-1]}")
+    del pad, a_, h0, h, want
+    # each request plans from its own profile: every slot's codes and
+    # formats, and its report rows' histogram, are those of the request
+    # planned alone on the same padded tensors
+    eng.executor.collect_report = eng.executor.keep_codes = True
+    waves.clear()
+    eng.serve(reqs)
+    eng.executor.collect_report = eng.executor.keep_codes = False
+    own = iter(own_plans(eng, waves))
+    hists = []
+    for w_ in waves:
+        rep = w_["report"]
+        for b_ in range(w_["slots"]):
+            h_ = np.sum([r_.histogram for r_ in rep.kernels
+                         if r_.name.endswith(f"[{b_}]")], axis=0)
+            if b_ < w_["real"]:
+                check(np.array_equal(h_, next(own).histogram),
+                      f"full-width wave {w_['bucket']} slot {b_}: report "
+                      "histogram differs from the request planned alone")
+            hists.append({"bucket": w_["bucket"], "slot": b_,
+                          "real": b_ < w_["real"], "histogram": h_.tolist()})
+    real_h = [tuple(h_["histogram"]) for h_ in hists if h_["real"]]
+    check(len(real_h) == CI_REQUESTS and len(set(real_h)) > 1,
+          "full-width requests do not each plan their own histogram")
+    check(all(h_["histogram"][1:] == [0, 0, 0] for h_ in hists
+              if not h_["real"]), "a full-width dummy slot planned work")
+    record("serving_histograms", requests=hists,
+           distinct_real=len(set(real_h)), codes_equal_per_request=len(
+               real_h))
+    # timed serves (one warm above) through the engine's own entry points,
+    # with the checks' wrappers taken off: walls from the host clock
+    # around serve (the last wave ends in a synchronize) and the waves'
+    # own launch-to-ready walls (engine.bucket_walls); the gather and
+    # copy-enqueue times, taken in begin_wave before launch_batch, come
+    # from the launch-count window above
+    unwatch()
+    eng.bucket_walls = {}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        walls.append(time.perf_counter() - t0)
+    eng.run_naive(reqs)
+    naive_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_naive(reqs)
+        naive_walls.append(time.perf_counter() - t0)
+    timed = eng.bucket_walls
+    by_bucket = {}
+    for w_ in waves_window:
+        by_bucket.setdefault(w_["bucket"], []).append(w_)
+    waves_per_serve = len(waves_window)
+    prof = profile_device(torch, lambda: eng.serve(reqs), n=2, top=12)
+    busy = prof["device_busy_ms"]
+    # the wave stack of the top bucket: pinned host -> device copy
+    host = {k_: torch.zeros((4,) + eng._input_shape(k_, top),
+                            pin_memory=True) for k_ in ("A_mean", "H0")}
+    copy_ms = cuda_ms(torch, lambda: [v.to(dev, non_blocking=True)
+                                      for v in host.values()])
+    copy_bytes = sum(v.numel() * 4 for v in host.values())
+    del host
+    # where a top-bucket wave's gather goes: the pinned zero buffers, the
+    # normalization of each request's adjacency, the slot fills
+    t0 = time.perf_counter()
+    host = {k_: torch.zeros((4,) + eng._input_shape(k_, top),
+                            pin_memory=True) for k_ in ("A_mean", "H0")}
+    zero_s = time.perf_counter() - t0
+    norm_s, fill_s = [], []
+    big_reqs = [r_ for r_ in reqs if eng.bucket_for(r_.n_vertices) == top][:4]
+    for i, r_ in enumerate(big_reqs):
+        t0 = time.perf_counter()
+        graph_data.normalize_adjacency(r_.adjacency)
+        norm_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        eng._fill_slot(r_, {k_: v[i].numpy() for k_, v in host.items()})
+        fill_s.append(time.perf_counter() - t0)
+    del host
+    record("serving_gather_breakdown", card=card, bucket=top,
+           requests=len(big_reqs), zero_pinned_wave_ms=zero_s * 1e3,
+           normalize_ms=[t_ * 1e3 for t_ in norm_s],
+           fill_slot_ms=[t_ * 1e3 for t_ in fill_s])
+    record("serving_full_width", card=card, model="sage", f_in=CI_F_IN,
+           hidden=16, classes=CI_CLASSES, requests=CI_REQUESTS,
+           sizes=list(CI_SIZES), avg_degree=CI_DEGREE,
+           feat_density=CI_FEAT, slots=4, buckets=buckets,
+           make_requests_s=make_s, waves_per_serve=waves_per_serve,
+           serve_wall_ms=[w * 1e3 for w in walls],
+           serve_wall_p50_ms=statistics.median(walls) * 1e3,
+           requests_per_s_served=CI_REQUESTS / statistics.median(walls),
+           naive_wall_ms=[w * 1e3 for w in naive_walls],
+           requests_per_s_naive=CI_REQUESTS / statistics.median(naive_walls),
+           wave_wall_p50_ms={b_: statistics.median(ws) * 1e3
+                             for b_, ws in timed.items()},
+           wave_wall_p50_ms_all=statistics.median(
+               [w_ for ws in timed.values() for w_ in ws]) * 1e3,
+           gather_ms_p50={b_: statistics.median(
+               [w_["gather_s"] for w_ in ws]) * 1e3
+               for b_, ws in by_bucket.items()},
+           copy_enqueue_ms_p50={b_: statistics.median(
+               [w_["copy_s"] for w_ in ws]) * 1e3
+               for b_, ws in by_bucket.items()},
+           h2d_copy_top_wave_ms=copy_ms,
+           h2d_copy_top_wave_bytes=copy_bytes,
+           h2d_copy_gb_per_s=copy_bytes / copy_ms / 1e6,
+           device_busy_ms_per_serve=busy,
+           device_busy_ms_per_wave=(busy / waves_per_serve
+                                    if prof["complete"] else busy),
+           idle_share=prof["idle_share"],
+           wall_ms_profiled=prof["wall_ms_profiled"],
+           top_device_ops=prof["top_device_ops"],
+           max_abs_err_vs_f64=errs, tol=MODEL_TOL,
+           bitwise_naive=True, launches_per_serve=counts,
+           launches_per_wave={k_: v / len(waves_window)
+                              for k_, v in counts.items()})
+
+    # ---- the batched route at the full-width wave's shape ---------------
+    cm = eng._compile(top)
+    blk = next(b_ for n_, b_ in runtime.FusedModelExecutor._needed_inputs(
+        runtime.FusedModelExecutor._resolved_flows(cm)) if n_ == "A_mean")
+    stack = torch.zeros((4, top, top), device=dev)
+    for i, r_ in enumerate(big_reqs):
+        stack[i] = torch.from_numpy(eng._padded(r_, top)["A_mean"]).to(dev)
+    bm_, bn_ = blk
+    kernel_entry(
+        "tile_nnz_batched", "src/repro_torch/kernels/csrc/tile_nnz.cu",
+        "src/repro/core/profiler.py:60 (jnp batched_block_counts; the "
+        "Pallas tile_nnz is src/repro/kernels/profile.py:25)",
+        lambda: P.tile_nnz_batched(stack, blk),
+        lambda: P.tile_nnz_plain(stack, blk),
+        lambda: torch.count_nonzero(stack.view(
+            4, top // bm_, bm_, top // bn_, bn_), dim=(2, 4)),
+        # one compare and one add per element; the stack read once, the
+        # counts written once
+        (2.0 * stack.numel(), 4.0 * stack.numel()
+         + 4.0 * 4 * (top // bm_) * (top // bn_)),
+        lambda g, w: True, units="simt",
+        lib_call="torch.count_nonzero(x.view(B, Mb, bm, Nb, bn), "
+                 "dim=(2, 4))",
+        launches=counts["tile_nnz_batched"])
+    record("tile_nnz_batched_vs_per_slot", card=card,
+           shape=[4, top, top], block=list(blk),
+           batched_ms=cuda_ms(torch, lambda: P.tile_nnz_batched(stack,
+                                                                 blk)),
+           per_slot_2d_ms=cuda_ms(torch, lambda: [P.tile_nnz(stack[i], blk)
+                                                  for i in range(4)]),
+           launches_per_wave=waves_window[0]["request_inputs"])
+    del stack
     return counts
 
 

@@ -94,10 +94,12 @@ def plan_format(strategy: str, dens_x: torch.Tensor, dens_y: torch.Tensor,
     m, k = lhs_shape
     bm, bk, _ = block_dims
     I, K = dens_x.shape
-    rows = np.clip(m - bm * np.arange(I), 0, bm)
-    cols = np.clip(k - bk * np.arange(K), 0, bk)
-    elems = torch.from_numpy(np.outer(rows, cols).astype(np.float32)).to(
-        dens_x.device)
+    # the elements inside each block, made on the device (an upload would
+    # wait for the stream); integers below 2^24, exact in float32
+    dev = dens_x.device
+    rows = torch.clamp(m - bm * torch.arange(I, device=dev), 0, bm)
+    cols = torch.clamp(k - bk * torch.arange(K, device=dev), 0, bk)
+    elems = (rows[:, None] * cols[None, :]).to(torch.float32)
     nnz = torch.sum(dens_x * elems)
     ax = dens_x[:, None, :]
     ay = dens_y.T[None]

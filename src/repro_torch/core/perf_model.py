@@ -64,9 +64,11 @@ def _maximum(a, b):
 
 def _div(a, b):
     """``a / b`` with a Python-number divisor turned into a device tensor
-    (IEEE division on every device, see the module docstring)."""
+    (IEEE division on every device, see the module docstring).  The tensor
+    is filled on the device: an upload from the host would wait for the
+    stream and stall a serving wave's launch."""
     if isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        b = torch.full((), b, dtype=a.dtype, device=a.device)
     return a / b
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.profile import tile_nnz
+from repro_torch.kernels.profile import tile_nnz, tile_nnz_batched
 
 
 def element_density(x: torch.Tensor) -> torch.Tensor:
@@ -40,6 +40,16 @@ def block_counts(x: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:
     profiler kernel (``kernels/profile.py``) on a CUDA tensor and its plain
     version on the CPU."""
     return tile_nnz(x, tuple(block))
+
+
+def batched_block_counts(x: torch.Tensor, block: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """Per-block nonzero counts of a stacked batch in ONE launch:
+    (B, M, N) -> (B, Mb, Nb) int32, each slice bitwise ``block_counts`` of
+    that slice (integer sums are order-free), which keeps batched and
+    per-request planning exact.  The serving wave's request inputs are
+    profiled through it (``tile_nnz_batched`` on a CUDA tensor)."""
+    return tile_nnz_batched(x, tuple(block))
 
 
 def block_density(x: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:

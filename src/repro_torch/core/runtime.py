@@ -15,8 +15,14 @@ Both bring the planner's codes to the host only for the report
 bookkeeping (``_bookkeep_kernel``).  A GAT head's ATTENTION kernel runs
 ``attention_adjacency`` (the masked edge-softmax) in both engines; it plans
 nothing itself, and its writeback counts are what the head's Aggregate
-plans from.  Batched waves, sharded dispatch and the cost-model simulator
-are not ported yet.
+plans from.
+
+:meth:`FusedModelExecutor.run_batch` (``launch_batch`` + ``finish_batch``)
+serves a wave of stacked requests on one device: the shared weights are
+profiled once per tensor identity, the requests' inputs in one batched
+``tile_nnz`` launch per (input, granularity), and each slot walks the same
+fused kernel walk, planning from its own profile.  Sharded dispatch and
+the cost-model simulator are not ported yet.
 """
 from __future__ import annotations
 
@@ -60,8 +66,19 @@ class KernelReport:
 class InferenceReport:
     kernels: List[KernelReport]
     strategy: str
-    # set by the fused executor: the whole walk's wall time
+    # set by the fused executor: the whole walk's wall time (for a wave,
+    # launch to ready)
     fused_wall_seconds: Optional[float] = None
+    # set on the batched serving path: the wave's slot count, and -- filled
+    # in by the admission layer, the only place that knows real from
+    # dummy -- how many of those slots carried real requests
+    wave_slots: Optional[int] = None
+    wave_real: Optional[int] = None
+    # host seconds the admission layer spent filling the wave's slot
+    # buffers (normalize + feature copy), and enqueuing their copy to the
+    # device; 0.0 off the wave path
+    gather_seconds: float = 0.0
+    copy_seconds: float = 0.0
 
     @property
     def total_cycles(self) -> float:
@@ -99,6 +116,25 @@ class InferenceReport:
     @property
     def histogram(self) -> np.ndarray:
         return np.sum([k.histogram for k in self.kernels], axis=0)
+
+
+@dataclasses.dataclass
+class PendingWave:
+    """An in-flight ``launch_batch`` wave (its handle for ``finish_batch``).
+
+    ``outs``/``sides`` are stacked (B, ...) device tensors whose kernels
+    may still be running; ``done`` is a CUDA event recorded after the last
+    of them (None on the CPU, where everything has run).  ``launched_at``
+    anchors the wave's launch-to-ready wall, so a wave queued behind
+    earlier work on the stream reports the wait it saw."""
+
+    outs: Dict[str, torch.Tensor]
+    sides: list
+    compiled: CompiledModel
+    n_cc: int
+    wave_slots: int
+    launched_at: float
+    done: Optional[torch.cuda.Event] = None
 
 
 def _k2p_model_seconds(num_decisions: int) -> float:
@@ -406,9 +442,9 @@ class FusedModelExecutor:
                           res.out_density, res.fmt))
         return sides
 
-    def _program(self, compiled: CompiledModel,
-                 tensors: Dict[str, torch.Tensor]) -> _WalkPlan:
-        key = self._signature(compiled, tensors)
+    def _program(self, compiled: CompiledModel, key: tuple) -> _WalkPlan:
+        """The walk plan cached under ``key``: a single inference's
+        signature, or a wave's (model, shared and wave signatures)."""
         plan = self._programs.get(key)
         if plan is not None:
             self.cache_hits += 1
@@ -440,7 +476,7 @@ class FusedModelExecutor:
         ``keep_intermediates``); the report carries the per-kernel
         bookkeeping plus ``fused_wall_seconds``."""
         n_cc = self.n_cc or compiled.partition.n_cc
-        plan = self._program(compiled, tensors)
+        plan = self._program(compiled, self._signature(compiled, tensors))
         in_counts = self._input_counts(plan.needed, tensors)
         t0 = time.perf_counter()
         env = dict(tensors)
@@ -469,3 +505,135 @@ class FusedModelExecutor:
                 for k, (codes, dens_x, dens_y, _, _fmt) in zip(topo, sides)]
         return outs, InferenceReport(reports, self.strategy,
                                      fused_wall_seconds=wall)
+
+    # -- batched (multi-tenant) execution ------------------------------------
+    def launch_batch(self, compiled: CompiledModel,
+                     shared: Dict[str, torch.Tensor],
+                     batched: Dict[str, torch.Tensor]) -> PendingWave:
+        """Enqueue one wave WITHOUT synchronizing with the device: the
+        asynchronous half of :meth:`run_batch`.
+
+        Nothing here waits for the device (no ``.item()``, no copy to the
+        host), so a serving layer can launch the next wave while this one
+        runs; :meth:`finish_batch` blocks and collects ``(outs, report)``."""
+        n_cc = self.n_cc or compiled.partition.n_cc
+        # one plan per (model, shared shapes, wave shapes): a server that
+        # pads waves to a fixed slot count builds one per shape bucket
+        plan = self._program(compiled, (
+            "wave", None, self._signature(compiled, shared),
+            self._tensor_sig(batched)))
+        missing = [n for n, _ in plan.needed
+                   if n not in shared and n not in batched]
+        if missing:
+            raise KeyError(f"wave inputs missing tensors: {missing}")
+        shared_needed = tuple((n, b) for n, b in plan.needed if n in shared)
+        request_needed = tuple((n, b) for n, b in plan.needed
+                               if n in batched)
+        slots = _wave_slots(batched)
+        shared_counts = self._input_counts(shared_needed, shared)
+        t0 = time.perf_counter()
+        base = {(name, blk): profiler.BlockProfile(
+                    counts, tuple(shared[name].shape), blk)
+                for (name, blk), counts in zip(shared_needed, shared_counts)}
+        # each request is a new graph: its inputs are profiled on the
+        # device, one launch per (input, granularity) for the whole wave
+        wave_counts = [profiler.batched_block_counts(batched[name], blk)
+                       for name, blk in request_needed]
+        final = plan.kernels[-1].out
+        keep = ([k.out for k in plan.kernels] if self.keep_intermediates
+                else [final])
+        slot_outs, slot_sides = [], []
+        for b in range(slots):
+            env = dict(shared)
+            env.update({name: v[b] for name, v in batched.items()})
+            profiles = dict(base)
+            for (name, blk), counts in zip(request_needed, wave_counts):
+                profiles[(name, blk)] = profiler.BlockProfile(
+                    counts[b], tuple(env[name].shape), blk)
+            slot_sides.append(self._trace_kernels(plan.kernels, plan.flows,
+                                                  env, profiles))
+            slot_outs.append([env[name] for name in keep])
+        outs = {name: torch.stack([o[i] for o in slot_outs])
+                for i, name in enumerate(keep)}
+        sides = [tuple(torch.stack([s_[k][j] for s_ in slot_sides])
+                       for j in range(5))
+                 for k in range(len(plan.kernels))]
+        done = None
+        if outs[final].is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(outs[final].device))
+        return PendingWave(outs=outs, sides=sides, compiled=compiled,
+                           n_cc=n_cc, wave_slots=slots,
+                           launched_at=t0, done=done)
+
+    def finish_batch(self, pending: PendingWave
+                     ) -> Tuple[Dict[str, torch.Tensor], InferenceReport]:
+        """Block on a :meth:`launch_batch` wave and assemble its report
+        (the synchronous half of :meth:`run_batch`)."""
+        if pending.done is not None:
+            pending.done.synchronize()
+        wall = time.perf_counter() - pending.launched_at
+        topo = pending.compiled.graph.topo_order()
+        sides = pending.sides
+        self.profiled_densities = {
+            k.out: side[3] for k, side in zip(topo, sides)}      # (B, ...)
+        if self.keep_codes:
+            self.planned_codes = {
+                k.out: side[0].cpu().numpy() for k, side in zip(topo, sides)}
+            self.planned_formats = {       # (B,) executed Format per slot
+                k.out: side[4].cpu().numpy() for k, side in zip(topo, sides)}
+        reports = []
+        if self.collect_report:
+            for b in range(pending.wave_slots):
+                for k, (codes, dens_x, dens_y, _, _fmt) in zip(topo, sides):
+                    rep = _bookkeep_kernel(k, codes[b], dens_x[b], dens_y[b],
+                                           pending.n_cc, self.model)
+                    rep.name = f"{k.name}[{b}]"
+                    reports.append(rep)
+        return pending.outs, InferenceReport(
+            reports, self.strategy, fused_wall_seconds=wall,
+            wave_slots=pending.wave_slots)
+
+    def run_batch(self, compiled: CompiledModel,
+                  shared: Dict[str, torch.Tensor],
+                  batched: Dict[str, torch.Tensor]
+                  ) -> Tuple[Dict[str, torch.Tensor], InferenceReport]:
+        """Serve a WAVE of stacked inferences on one device.
+
+        * ``shared`` -- tensors common to every request (the weights),
+          profiled once per tensor identity (``run``'s cache);
+        * ``batched`` -- per-request tensors stacked on a leading slot axis
+          (``(B, ...)``), profiled on the device in one batched launch per
+          (input, granularity); each slot then walks the fused kernel walk
+          on its own slice, planning its K2P codes from its own profile.
+
+        Returns ``(outs, report)``: every entry of ``outs`` is stacked
+        ``(B, ...)`` (the final output, or every kernel's under
+        ``keep_intermediates``); the report is wave-level, with
+        ``collect_report`` rows named ``"{kernel}[b]"``.  A slot's result
+        is bitwise what ``run`` gives on its slice.  Plans are cached per
+        (model, shared signature, wave signature), so ``trace_count`` grows
+        by at most one per bucket of a fixed-slot server."""
+        return self.finish_batch(self.launch_batch(compiled, shared,
+                                                   batched))
+
+
+def _wave_slots(batched: Dict[str, torch.Tensor]) -> int:
+    """The wave's slot count, checked across its stacked inputs.  On the
+    card every slot's view must start on a 16-byte boundary (kernels read
+    their operands in 16-byte words); a slot stride that is not a multiple
+    of 16 bytes raises rather than run another route."""
+    if not batched:
+        raise ValueError("run_batch: a wave needs per-request inputs")
+    sizes = {name: int(v.shape[0]) for name, v in batched.items()}
+    if len(set(sizes.values())) != 1:
+        raise ValueError(f"run_batch: stacked inputs disagree on the slot "
+                         f"count: {sizes}")
+    for name, v in batched.items():
+        apart = v.stride(0) * v.element_size()
+        if v.is_cuda and (v.data_ptr() % 16 or apart % 16):
+            raise ValueError(
+                f"run_batch: slots of {name!r} lie {apart} bytes apart; "
+                "each slot must start on a 16-byte boundary (pad the "
+                "bucket to a multiple of 4 rows)")
+    return next(iter(sizes.values()))

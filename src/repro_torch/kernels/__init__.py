@@ -5,7 +5,8 @@ and ``flash_attention`` port the Pallas kernels of ``repro.kernels``;
 ``dispatch`` is the executor's one-launch block path and ``edge_softmax``
 GAT's masked edge-softmax (jnp in the reference's
 ``attention_adjacency``).  Each module holds its kernel's wrapper, its
-plain PyTorch version and its launch counter (``<module>.launches``);
+plain PyTorch version and its launch counter (``<module>.launches``;
+the batched ``tile_nnz`` route counts in ``profile.batched_launches``);
 ``ops`` holds the padding and format wrappers, ``build`` compiles
 ``csrc/`` with ``nvcc`` at first use.
 """
@@ -20,12 +21,16 @@ KERNEL_MODULES = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm,
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    """Launches of each kernel since the last :func:`reset_launch_counts`,
+    the batched ``tile_nnz`` route under ``tile_nnz_batched``."""
+    counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    counts["tile_nnz_batched"] = profile.batched_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+    profile.batched_launches = 0
     spdmm.launches_by_shape.clear()
     csr_spmm.launches_by_shape.clear()

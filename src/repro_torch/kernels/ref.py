@@ -16,16 +16,17 @@ def ref_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def ref_tile_nnz(x: torch.Tensor, tile: Tuple[int, int]) -> torch.Tensor:
-    """Per-tile nonzero counts: (M, N) -> (Mb, Nb) int32 (pads with
-    zeros, which add no count)."""
-    m, n = x.shape
+    """Per-tile nonzero counts: (..., M, N) -> (..., Mb, Nb) int32, each
+    matrix of a stack counted alone (pads with zeros, which add no
+    count)."""
+    m, n = x.shape[-2:]
     tm, tn = tile
     pm, pn = (-m) % tm, (-n) % tn
     if pm or pn:
         x = F.pad(x, (0, pn, 0, pm))
-    mb, nb = x.shape[0] // tm, x.shape[1] // tn
-    nz = (x != 0).reshape(mb, tm, nb, tn)
-    return nz.sum(dim=(1, 3), dtype=torch.int32)
+    mb, nb = x.shape[-2] // tm, x.shape[-1] // tn
+    nz = (x != 0).reshape(*x.shape[:-2], mb, tm, nb, tn)
+    return nz.sum(dim=(-3, -1), dtype=torch.int32)
 
 
 def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,7 @@ import torch
 
 import repro_torch.kernels as K
 from repro_torch.core import formats
+from repro_torch.core.ir import KernelType
 from repro_torch.core.perf_model import Primitive
 from repro_torch.kernels import build, dispatch, ops
 
@@ -246,8 +247,8 @@ def test_dispatch_f32_every_block_edge(cuda, bm, bk, bn):
     want = dispatch.block_matmul_plain(x, y, codes, (bm, bk, bn))
     K.reset_launch_counts()
     got = dispatch.block_matmul(x, y, codes, (bm, bk, bn))
-    assert K.launch_counts() == {**{n: 0 for n in K.KERNEL_MODULES},
-                                 "dispatch": 1}
+    counts = K.launch_counts()
+    assert counts == {**{n: 0 for n in counts}, "dispatch": 1}
     torch.testing.assert_close(got, want, **TOL)
     assert not got[333:].any()                  # padded rows are zeros
     rows = dispatch.block_matmul(x, y, codes, (bm, bk, bn), pad_rows=False)
@@ -757,3 +758,135 @@ def test_gat_fused_equals_per_kernel_on_the_card(cuda):
     want, cpu_rep = runtime.DynasparseEngine().run(bundle.compiled, cpu)
     torch.testing.assert_close(out.cpu(), want[last], atol=2e-4, rtol=2e-4)
     np.testing.assert_array_equal(rep.histogram, cpu_rep.histogram)
+
+
+# -- the batched serving path --------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,m,n", [(1, 64, 48), (3, 100, 130), (4, 700, 1500),
+                                   (3, 33, 1)])
+def test_tile_nnz_batched_equals_per_slot_launches(cuda, dtype, b, m, n):
+    """One batched launch per stack; each slot exactly the 2-D kernel's
+    counts and the plain version's, all-zero slots and strided stacks
+    included."""
+    rng = np.random.default_rng(b * m + n)
+    x = rng.normal(size=(b, m, n)) * (rng.random((b, m, n)) < 0.05)
+    x[b // 2] = 0.0                                  # a dummy slot
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda).to(dtype)
+    for stack in (x, x[:, 1:, :]):
+        for tile in ((16, 16), (64, 16), (32, 1)):
+            K.reset_launch_counts()
+            got = K.profile.tile_nnz_batched(stack, tile)
+            assert K.launch_counts()["tile_nnz_batched"] == 1
+            assert torch.equal(got, K.profile.tile_nnz_plain(stack, tile))
+            for s in range(b):
+                assert torch.equal(got[s], K.profile.tile_nnz(stack[s],
+                                                              tile)), s
+            assert not got[b // 2].any()
+    with pytest.raises(ValueError):
+        K.profile.tile_nnz_batched(x[0], (16, 16))
+
+
+def _slot_operands(cuda):
+    """A (3, 64, 48) stack whose slot 1 is real and slots 0 and 2 are
+    all-zero dummies, and a (3, 64, 64) adjacency stack likewise."""
+    rng = np.random.default_rng(11)
+    h = np.zeros((3, 64, 48), np.float32)
+    h[1] = rng.normal(size=(64, 48)) * (rng.random((64, 48)) < 0.3)
+    a = np.zeros((3, 64, 64), np.float32)
+    a[1] = rng.random((64, 64)) < 0.1
+    return (torch.from_numpy(h).to(cuda), torch.from_numpy(a).to(cuda))
+
+
+@pytest.mark.parametrize("slot", ["dummy", "real"])
+def test_path_kernels_on_dummy_slots_and_slot_views(cuda, slot):
+    """Every kernel wrapper of the serving path on a slot view at a nonzero
+    offset of a wave stack: the all-zero dummy slot 0 (empty Block-CSR, an
+    all-SKIP grid, ELL with every row empty, an adjacency with no support)
+    and the real slot 1, each against its plain version."""
+    from repro_torch.core import dynasparse
+    h, a = _slot_operands(cuda)
+    b = 2 if slot == "dummy" else 1
+    x, adj = h[b], a[b]
+    assert bool(x.any()) == (slot == "real")
+    assert x.data_ptr() != h.data_ptr()              # a view at an offset
+    w = sparse(12, 48, 16, 0.5, cuda)
+    cpu = lambda t: t.cpu()                          # noqa: E731
+    torch.testing.assert_close(K.gemm.gemm(x, w), K.gemm.gemm_plain(
+        cpu(x), cpu(w)).to(cuda), **TOL)
+    xb = formats.dense_to_bcsr(x, (16, 16))
+    torch.testing.assert_close(K.spdmm.spdmm(xb, w), K.spdmm.spdmm_plain(
+        formats.dense_to_bcsr(cpu(x), (16, 16)), cpu(w)).to(cuda), **TOL)
+    ell = formats.dense_to_ell(adj, 8)
+    torch.testing.assert_close(
+        ops.csr_spmm(ell, x), ops.csr_spmm(formats.dense_to_ell(
+            cpu(adj), 8), cpu(x)).to(cuda), **TOL)
+    skip = torch.zeros((4, 1, 3), dtype=torch.int32, device=cuda)
+    for codes in (skip, torch.randint(0, 4, (4, 1, 3), dtype=torch.int32,
+                                      device=cuda)):
+        got = dispatch.block_matmul(x, w, codes, (16, 16, 16))
+        torch.testing.assert_close(got, dispatch.block_matmul_plain(
+            cpu(x), cpu(w), cpu(codes), (16, 16, 16)).to(cuda), **TOL)
+    assert not dispatch.block_matmul(x, w, skip, (16, 16, 16)).any()
+    asrc, adst = sparse(13, 48, 1, 1.0, cuda), sparse(14, 48, 1, 1.0, cuda)
+    got, counts = K.edge_softmax.edge_softmax(adj, x, asrc, adst,
+                                              threshold=0.02,
+                                              out_block=(16, 16))
+    want, want_c = K.edge_softmax.edge_softmax_plain(
+        cpu(adj), cpu(x), cpu(asrc), cpu(adst), threshold=0.02,
+        out_block=(16, 16))
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    assert torch.equal(counts.cpu(), want_c)
+    kw = dict(block=(16, 16, 16), kernel_type=KernelType.AGGREGATE)
+    for strategy in ("dynamic", "s1", "s2", "gemm"):
+        res = dynasparse.dynasparse_matmul(adj, x, strategy=strategy, **kw)
+        ref = dynasparse.dynasparse_matmul(cpu(adj), cpu(x),
+                                           strategy=strategy, **kw)
+        torch.testing.assert_close(res.out.cpu(), ref.out, **TOL)
+        assert torch.equal(res.codes.cpu(), ref.codes), strategy
+
+
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_graph_serving_matches_naive_on_the_card(cuda, model):
+    """serve == run_naive bitwise on a small stream; one walk plan per
+    bucket; one batched tile_nnz launch per (request input, granularity)
+    per wave; dummy slots plan all SKIP; two waves in flight give what two
+    dispatched waves give."""
+    from repro_torch.core import runtime
+    from repro_torch.serving.graph_engine import (GraphServeEngine,
+                                                  random_requests)
+    eng = GraphServeEngine(model, f_in=64, hidden=16, n_classes=7, slots=4,
+                           keep_codes=True, device=cuda)
+    reqs = random_requests(7, f_in=64, sizes=(56, 100, 150), seed=7)
+    K.reset_launch_counts()
+    served = eng.serve(reqs)
+    launched = K.launch_counts()["tile_nnz_batched"]
+    naive = eng.run_naive(reqs)
+    for s, n in zip(served, naive):
+        assert np.array_equal(s.logits, n.logits), s.request_id
+    assert eng.executor.trace_count == len(eng.buckets)
+    per_wave = {}
+    for bucket in eng.buckets:
+        flows = runtime.FusedModelExecutor._resolved_flows(
+            eng._compiled[bucket])
+        per_wave[bucket] = len([n for n, _ in runtime.FusedModelExecutor
+                                ._needed_inputs(flows)
+                                if n in eng._input_names[bucket]])
+    assert launched == sum(per_wave[r.bucket] for r in
+                           {r.wave: r for r in served}.values())
+    # the last wave of the stream: its unused slots plan all SKIP (an
+    # attention kernel's grid is its constant one-GEMM cost entry)
+    real = eng.last_wave_report.wave_real
+    for k in eng._compiled[served[-1].bucket].graph.kernels:
+        if k.kernel_type != KernelType.ATTENTION:
+            assert not eng.executor.planned_codes[k.out][real:].any(), k.out
+    bucket = served[0].bucket
+    wave = [q for q, r in zip(reqs, served) if r.bucket == bucket][:2]
+    first, second = eng.begin_wave(bucket, wave), eng.begin_wave(
+        bucket, wave[::-1])
+    got = eng.finish_wave(first) + eng.finish_wave(second)
+    want = eng.dispatch_wave(bucket, wave) + eng.dispatch_wave(bucket,
+                                                               wave[::-1])
+    for g, w_ in zip(got, want):
+        assert np.array_equal(g.logits, w_.logits)
