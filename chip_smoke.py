@@ -31,6 +31,21 @@ card at the shapes its path gives it, then drives the port's paths:
   2048 / 4096), == ``run_naive`` bitwise and within 2e-4 of a float64
   oracle per request, with wave walls, gather and copy times, device
   busy and requests/s served and naive;
+* continuous serving (``ContinuousGraphServer``): the reference's
+  continuous parity stream (``benchmarks/bench_serving.py``: 6 requests,
+  waves of 3, ``max_wait`` 0.01) through all five models and GCN's
+  row-CSR route, == ``run_naive`` bitwise; the scheduler's policy under a
+  fake clock with scripted walls, equal on the card and on the CPU, with
+  full, deadline, age and drain cuts and sheds; then SAGE at CiteSeer's
+  widths: two waves in flight against one over 24 requests (no host
+  synchronization in ``begin_wave`` while a wave is in flight, pinned
+  buffers released), and the reference's deep overload replay, 96
+  requests arriving at 1x, 3x and 10x the measured capacity, under
+  ``shed="never"`` and ``"predicted-miss"``, each delivered + shed ==
+  submitted and == ``run_naive`` bitwise, with hit-rates, goodput,
+  sojourns, the EWMA wave-wall estimate against each wave's marginal
+  wall, the device's idle share and the host's pinned and resident
+  memory;
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
@@ -788,6 +803,9 @@ def main() -> int:
     serve_counts = serving_phase(torch, np, K, dev, card, kernel_entry,
                                  small_checks, close)
 
+    # ---------------- phase 5d: continuous serving -----------------------
+    continuous_phase(torch, np, K, dev, card)
+
     # ---------------- phase 6: the per-primitive path (ops.matmul) --------
     K.reset_launch_counts()
     for prim in (Primitive.GEMM, Primitive.SPDMM, Primitive.SPMM):
@@ -1544,6 +1562,517 @@ def serving_phase(torch, np, K, dev, card, kernel_entry, small_checks,
     return counts
 
 
+# benchmarks/bench_serving.py:337-359 (_continuous_parity): the reference's
+# continuous parity stream, 6 requests of the first two stream sizes, seed
+# 13, waves of 3, max_wait 0.01, deadlines 60 s after submit
+PARITY_REQUESTS, PARITY_SEED, PARITY_SLOTS = 6, 13, 3
+# benchmarks/bench_serving.py:722-803 (_bench_overload, run_overload), at
+# SAGE with CiteSeer's widths: the reference's deep replay of 96 requests
+# (24 waves' worth, so that at 10x the backlog takes ~24 wave walls to
+# clear against a 6-wall budget), Poisson arrivals (seed 100) at 1x, 3x and
+# 10x the capacity a sync serve of the same requests measures, deadlines 6
+# wave walls after arrival, shedding armed at half that budget; every 4th
+# request is the "gold" class (priority 1)
+OVER_REQUESTS, OVER_LOADS, OVER_BUDGET, OVER_SEED = 96, (1, 3, 10), 6.0, 100
+ADMITTED_FLOOR = 0.9  # the reference's admitted hit-rate gate at >= 3x
+#                       (bench_serving.py run_overload's hit_floor)
+FLIGHT_REQUESTS = 24  # the two-waves-in-flight passes: the first 24 (7 waves)
+
+
+def scripted_policy_run(np, engine, reqs, n_lanes, policy):
+    """Phase 5d (b): the CPU tests' scripted stream
+    (``tests/torch_scripted_stream.py``) through one server on
+    ``engine``, under a fake clock with scripted walls.  Returns (server,
+    tickets, results)."""
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+    from torch_scripted_stream import (SERVER_KW, script_walls, stream,
+                                       stream_clock)
+    clk = stream_clock()
+    script_walls(engine, clk)
+    srv = ContinuousGraphServer(engine, clock=clk, n_lanes=n_lanes,
+                                **SERVER_KW, **policy)
+    srv.warmup((20,))
+    tickets, done = stream(srv, clk, reqs, np.random.default_rng(3))
+    del engine.finish_wave
+    return srv, tickets, done
+
+
+def replay(torch, np, K, engine, reqs, arrivals, budget, *, shed,
+           pressure_threshold, warm_reqs):
+    """Phase 5d (c): one open-loop Poisson replay on the host clock, as
+    ``bench_serving._replay_overload`` runs it, at one lane: the server is
+    warmed with two deadline-less waves (``warm_reqs``; results dropped),
+    then each request is submitted when the clock passes its arrival
+    (deadline = arrival + budget), polling between arrivals, and the stream
+    ends with a drain.  Every submit pays its own ``request_cost`` (the
+    memo is cleared first, as for new requests).  Returns the server,
+    tickets, results, timings and the replay window's launch counts."""
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+    srv = ContinuousGraphServer(engine, shed=shed,
+                                pressure_threshold=pressure_threshold)
+    for r in warm_reqs:
+        srv.submit(r, tenant="warmup")
+    srv.drain()
+    srv.peak_pressure = 0.0
+    for r in reqs:
+        r.__dict__.pop("_dynasparse_cost", None)
+    w0 = len(srv.dispatch_log)
+    # the EWMA estimate each cut used: estimates change only at harvest,
+    # so they are read right after the cut
+    est_at_cut = {}
+    cut_ready = srv._cut_ready
+
+    def watched_cut_ready(now, **kw):
+        ready = cut_ready(now, **kw)
+        for bucket, _, _, cut_at in ready:
+            est_at_cut[(bucket, cut_at)] = srv.estimate(bucket)
+        return ready
+
+    srv._cut_ready = watched_cut_ready
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    abs_arrival = t0 + np.asarray(arrivals)
+    n, i, done, tickets, submit_s = len(reqs), 0, [], [], []
+    while i < n:
+        now = time.monotonic()
+        while i < n and abs_arrival[i] <= now:
+            gold = i % 4 == 0
+            ts = time.perf_counter()
+            tickets.append(srv.submit(
+                reqs[i], deadline=float(abs_arrival[i]) + budget,
+                priority=1 if gold else 0, tenant="gold" if gold else "std"))
+            submit_s.append(time.perf_counter() - ts)
+            i += 1
+        got = srv.poll()
+        done += got
+        if not got and i < n:
+            time.sleep(min(max(abs_arrival[i] - time.monotonic(), 0.0),
+                           1e-3) if not srv.pending else 5e-4)
+    done += srv.drain()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    waves = srv.dispatch_log[w0:]
+    # each wave's results come in harvest order, as the log does, and
+    # carry its delivery time.  At one lane a wave starts once its cut is
+    # made and the wave before it is delivered, so its own wall is the
+    # marginal one, delivery - max(cut, previous delivery), as the
+    # server's admission floor (_wave_floor) takes it; delivery - cut is
+    # its sojourn from the cut, which holds the walls of the waves cut in
+    # the same tick ahead of it
+    it = iter(done)
+    per_wave, prev_done = [], t0
+    for w_ in waves:
+        res = [next(it) for _ in range(w_.n_real)]
+        done_at = res[0].completed_at
+        per_wave.append({"bucket": w_.bucket, "n_real": w_.n_real,
+                         "reason": w_.reason,
+                         "estimate_s": est_at_cut[(w_.bucket, w_.cut_at)],
+                         "launch_to_ready_s": w_.wall,
+                         "marginal_wall_s": done_at - max(w_.cut_at,
+                                                          prev_done),
+                         "sojourn_from_cut_s": done_at - w_.cut_at})
+        prev_done = done_at
+    return dict(srv=srv, tickets=tickets, done=done, t0=t0,
+                abs_arrival=abs_arrival, submit_s=submit_s,
+                counts=counts, waves=per_wave)
+
+
+def host_memory(torch, trim: bool = False) -> dict:
+    """The caching host allocator's pinned segments (bytes held, and the
+    pinned allocations and frees it has made), its ``active_bytes``
+    counter, and the process's resident memory (VmRSS); with ``trim``,
+    after glibc's ``malloc_trim`` hands the heap's free pages back, so
+    that what stays resident is memory still in use."""
+    if trim:
+        try:
+            import ctypes
+            ctypes.CDLL("libc.so.6").malloc_trim(0)
+        except (OSError, AttributeError):
+            pass
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    out = {}
+    if stats is not None:
+        torch.empty(1, pin_memory=True)   # the allocator frees on allocate
+        s_ = stats()
+        out = {k_: s_.get(k_) for k_ in (
+            "allocated_bytes.current", "active_bytes.current",
+            "num_host_alloc", "num_host_free")}
+    try:
+        with open("/proc/self/status") as f:
+            rss = [ln for ln in f if ln.startswith("VmRSS:")]
+        out["rss_bytes"] = int(rss[0].split()[1]) * 1024 if rss else None
+    except OSError:
+        out["rss_bytes"] = None
+    return out
+
+
+def continuous_phase(torch, np, K, dev, card) -> None:
+    """Phase 5d: continuous serving (``ContinuousGraphServer``).
+
+    (a) the reference's continuous parity stream through all five models
+    and GCN's row-CSR route: each request delivered once, == run_naive
+    bitwise, walk plans <= buckets, waves <= slots, one batched
+    ``tile_nnz`` launch per request input per wave; (b) the policy under a
+    fake clock with scripted walls, on the card and on the CPU with the
+    same code: equal dispatch logs, tickets, class counters and shed logs,
+    every cut reason and shed kind seen, conservation, == run_naive
+    bitwise; (c) SAGE at CiteSeer's widths: two waves in flight against
+    one (no host sync inside ``begin_wave`` while a wave is in flight, the
+    pinned buffers released after ``finish_wave``), then one-lane Poisson
+    replays of 96 requests at 1x, 3x and 10x the measured capacity under
+    ``shed="never"`` and ``"predicted-miss"``: conservation, == run_naive
+    bitwise, 3 ``tile_nnz_batched`` launches per wave, with hit-rates,
+    goodput, sojourns, the EWMA estimate against each wave's marginal
+    wall, ``request_cost`` per submit, the device's idle share and the
+    host's pinned and resident memory."""
+    import collections
+    import gc
+    import warnings
+    from repro_torch.core import runtime
+    from repro_torch.core.perf_model import TPUCostModel
+    from repro_torch.serving.graph_engine import (GraphServeEngine,
+                                                  random_requests)
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+
+    def inputs_per_wave(eng, bucket):
+        flows = runtime.FusedModelExecutor._resolved_flows(
+            eng._compiled[bucket])
+        return len([n_ for n_, _ in runtime.FusedModelExecutor
+                    ._needed_inputs(flows) if n_ in eng._input_names[bucket]])
+
+    def bitwise_naive(done, naive, label):
+        ids = [r_.request_id for r_ in done]
+        check(len(ids) == len(set(ids)), f"{label}: a request delivered twice")
+        for r_ in done:
+            check(np.array_equal(r_.logits, naive[r_.request_id].logits),
+                  f"{label}: request {r_.request_id} != run_naive")
+
+    # ---- (a) the reference's continuous parity stream --------------------
+    t_part = time.perf_counter()
+    cheap = dataclasses.replace(TPUCostModel(), eff_transform=1.0,
+                                transform_overhead_s=0.0)
+    reqs = random_requests(PARITY_REQUESTS, f_in=STREAM_F_IN,
+                           sizes=STREAM_SIZES[:2], seed=PARITY_SEED)
+    parity = []
+    for model, cost in [(m_, None) for m_ in
+                        ("gcn", "sage", "gin", "sgc", "gat")] + [("gcn",
+                                                                  cheap)]:
+        label = model + (" CSR" if cost else "")
+        eng = GraphServeEngine(model, f_in=STREAM_F_IN, hidden=16,
+                               n_classes=7, slots=PARITY_SLOTS,
+                               weight_seed=0, cost_model=cost, device=dev)
+        srv = ContinuousGraphServer(eng, max_wait=0.01)
+        K.reset_launch_counts()
+        done = []
+        for r_ in reqs:
+            srv.submit(r_, deadline=time.monotonic() + 60.0)
+            done += srv.poll()
+        while srv.pending:
+            done += srv.drain()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check(sorted(r_.request_id for r_ in done)
+              == sorted(r_.request_id for r_ in reqs),
+              f"{label}: not every request delivered once")
+        bitwise_naive(done, {r_.request_id: r_ for r_ in eng.run_naive(reqs)},
+                      f"continuous {label}")
+        check(eng.executor.trace_count <= len(eng.buckets),
+              f"{label}: {eng.executor.trace_count} walk plans for "
+              f"{len(eng.buckets)} buckets")
+        check(all(w_.n_real <= PARITY_SLOTS for w_ in srv.dispatch_log),
+              f"{label}: a wave over {PARITY_SLOTS} slots")
+        check(counts["tile_nnz_batched"] == sum(
+            inputs_per_wave(eng, w_.bucket) for w_ in srv.dispatch_log),
+            f"{label}: {counts['tile_nnz_batched']} batched launches for "
+            f"{len(srv.dispatch_log)} waves")
+        if cost is not None:
+            check(counts["csr_spmm"] > 0, f"{label}: csr_spmm never ran")
+        parity.append({"run": label, "buckets": eng.buckets,
+                       "traces": eng.executor.trace_count,
+                       "waves": [[w_.bucket, w_.n_real, w_.reason]
+                                 for w_ in srv.dispatch_log],
+                       "launches": counts, "bitwise_naive": True})
+        del eng, srv
+    record("continuous_parity", requests=PARITY_REQUESTS, f_in=STREAM_F_IN,
+           sizes=list(STREAM_SIZES[:2]), seed=PARITY_SEED,
+           slots=PARITY_SLOTS, max_wait=0.01, runs=parity,
+           seconds=time.perf_counter() - t_part)
+
+    # ---- (b) the policy under a fake clock, scripted walls ---------------
+    t_part = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_scripted_stream as scripted
+    reqs = random_requests(scripted.N_STREAM, f_in=32,
+                           sizes=scripted.STREAM_SIZES,
+                           seed=scripted.STREAM_SEED)
+    reasons, sheds, policy_runs, naive = collections.Counter(), 0, [], None
+    for name, policy in scripted.POLICIES.items():
+        for n_lanes in (1, 2):
+            runs = []
+            for where in (dev, "cpu"):
+                eng = GraphServeEngine("gcn", f_in=32, hidden=8, n_classes=6,
+                                       slots=3, min_bucket=32, device=where)
+                runs.append((eng,) + scripted_policy_run(
+                    np, eng, reqs, n_lanes, policy))
+            (eng, srv, tickets, done), (_, c_srv, c_tickets, c_done) = runs
+            label = f"scripted {name} n_lanes={n_lanes}"
+
+            def log(s_):
+                return [(w_.bucket, w_.n_real, w_.reason, w_.cut_at, w_.wall,
+                         w_.lane, w_.classes) for w_ in s_.dispatch_log]
+
+            check(log(srv) == log(c_srv), f"{label}: dispatch log differs "
+                  "from the CPU's")
+            check([(int(t_), t_.verdict, t_.predicted_miss, t_.bucket,
+                    t_.predicted_wall) for t_ in tickets]
+                  == [(int(t_), t_.verdict, t_.predicted_miss, t_.bucket,
+                       t_.predicted_wall) for t_ in c_tickets],
+                  f"{label}: tickets differ from the CPU's")
+            check({k_: dataclasses.astuple(v) for k_, v in
+                   srv.class_stats.items()} == {
+                       k_: dataclasses.astuple(v)
+                       for k_, v in c_srv.class_stats.items()}
+                  and [int(t_) for t_ in srv.shed_log]
+                  == [int(t_) for t_ in c_srv.shed_log],
+                  f"{label}: class counters or shed log differ")
+            check(len(done) + len(srv.shed_log) == srv.submitted == len(reqs),
+                  f"{label}: {len(done)} delivered + {len(srv.shed_log)} "
+                  f"shed != {srv.submitted} submitted")
+            if naive is None:           # every run's engine: seed 0
+                naive = {r_.request_id: r_ for r_ in eng.run_naive(reqs)}
+            bitwise_naive(done, naive, label)
+            for a_, b_ in zip(done, c_done):
+                check(bool(np.allclose(a_.logits, b_.logits, atol=TOL,
+                                       rtol=TOL)),
+                      f"{label}: card logits vs CPU beyond {TOL}")
+            reasons.update(w_.reason for w_ in srv.dispatch_log)
+            sheds += len(srv.shed_log)
+            policy_runs.append({
+                "run": label, "waves": len(srv.dispatch_log),
+                "reasons": dict(collections.Counter(
+                    w_.reason for w_ in srv.dispatch_log)),
+                "delivered": len(done), "shed_at_submit": srv.shed_at_submit,
+                "shed_under_pressure": srv.shed_under_pressure,
+                "equal_cpu_policy": True, "bitwise_naive": True})
+    check(set(reasons) == {"full", "deadline", "age", "drain"} and sheds > 0,
+          f"scripted streams cut {dict(reasons)} and shed {sheds}")
+    record("continuous_policy", requests=len(reqs), runs=policy_runs,
+           reasons=dict(reasons), seconds=time.perf_counter() - t_part)
+
+    # ---- (c) full width: SAGE at CiteSeer's widths -----------------------
+    t_part = t0 = time.perf_counter()
+    gc.collect()
+    mem_start = host_memory(torch, trim=True)
+    reqs = random_requests(OVER_REQUESTS, f_in=CI_F_IN, sizes=CI_SIZES,
+                           seed=0, avg_degree=CI_DEGREE,
+                           feat_density=CI_FEAT)
+    make_s = time.perf_counter() - t0
+    eng = GraphServeEngine("sage", f_in=CI_F_IN, hidden=16,
+                           n_classes=CI_CLASSES, slots=4, min_bucket=64,
+                           device=dev)
+    # the servers' warm-up waves: two waves' worth of the stream's own
+    # requests (the reference draws others from the same sizes)
+    warm_reqs = reqs[: 2 * eng.slots]
+    check(sorted({eng.bucket_for(r_.n_vertices) for r_ in reqs})
+          == CI_BUCKETS, "full-width continuous buckets")
+    # request_cost on the host, memo cold, per request
+    cost_s = []
+    for r_ in reqs:
+        t0 = time.perf_counter()
+        eng.request_cost(r_)
+        cost_s.append(time.perf_counter() - t0)
+    # capacity as the reference measures it: one warm serve, one timed
+    eng.serve(reqs)
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    serve_wall = time.perf_counter() - t0
+    capacity = OVER_REQUESTS / serve_wall
+    wave_wall = serve_wall * eng.slots / OVER_REQUESTS
+    budget = OVER_BUDGET * wave_wall
+    naive = {r_.request_id: r_ for r_ in eng.run_naive(reqs)}
+
+    # two waves in flight against one, over the sync serve's waves of the
+    # first FLIGHT_REQUESTS requests: host clock, serial / pipelined /
+    # pipelined / serial; the first pipelined pass checks for host syncs
+    # in each begin_wave made while a wave is in flight, and the pinned
+    # buffers before and after
+    waves = [(b_, [q for _, q in w_]) for b_, ws in
+             eng._admit(reqs[:FLIGHT_REQUESTS]).items() for w_ in ws]
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+
+    def serial():
+        out = []
+        for b_, w_ in waves:
+            out += eng.finish_wave(eng.begin_wave(b_, w_))
+        return out
+
+    def pipelined(watch=None):
+        out, prev = [], None
+        for b_, w_ in waves:
+            if prev is None or watch is None:
+                h_ = eng.begin_wave(b_, w_)
+            else:
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        h_ = eng.begin_wave(b_, w_)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                watch["syncs"] += [str(w.message)[:120] for w in caught
+                                   if "ynchroniz" in str(w.message)]
+                watch["in_flight"].append(host_memory(torch))
+            if prev is not None:
+                out += eng.finish_wave(prev)
+            prev = h_
+        return out + eng.finish_wave(prev)
+
+    torch.cuda.synchronize()
+    watch = {"syncs": [], "in_flight": [], "before": host_memory(torch)}
+    got = pipelined(watch)
+    torch.cuda.synchronize()
+    watch["after"] = host_memory(torch)
+    check(not watch["syncs"], "begin_wave synchronized with the host while a "
+          f"wave was in flight: {watch['syncs']}")
+    if host_stats is not None:
+        # the pinned segments the caching host allocator holds: each wave's
+        # buffers go back to it once their copy is done, so a pass with two
+        # waves in flight holds no more than it held before, and has made
+        # no more cudaHostAlloc calls than cudaFreeHost calls
+        seg = "allocated_bytes.current"
+        check(max(x_[seg] for x_ in watch["in_flight"] + [watch["after"]])
+              <= watch["before"][seg],
+              f"pinned host memory grew over two waves in flight: {watch}")
+
+        def live(x_):
+            if x_["num_host_alloc"] is None or x_["num_host_free"] is None:
+                return None
+            return x_["num_host_alloc"] - x_["num_host_free"]
+
+        check(live(watch["before"]) is None
+              or live(watch["after"]) <= live(watch["before"]),
+              f"pinned host segments left over two waves in flight: {watch}")
+    flight, outs = {"serial_s": [], "pipelined_s": []}, {}
+    for key, fn in (("serial_s", serial), ("pipelined_s", pipelined),
+                    ("pipelined_s", pipelined), ("serial_s", serial)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[key] = fn()
+        flight[key].append(time.perf_counter() - t0)
+    check(all(np.array_equal(a_.logits, b_.logits) for a_, b_ in
+              zip(got + outs["pipelined_s"], 2 * outs["serial_s"])),
+          "two waves in flight != one at a time")
+    top = CI_BUCKETS[-1]
+    wave_bytes = sum(4 * eng.slots * int(np.prod(eng._input_shape(n_, top)))
+                     for n_ in eng._input_names[top])
+    record("continuous_two_waves_in_flight", card=card,
+           requests=FLIGHT_REQUESTS, waves=len(waves),
+           host_syncs_in_begin_wave=0, bitwise_one_at_a_time=True,
+           host_memory=watch if host_stats else "not measured",
+           pinned_bytes_per_top_wave=wave_bytes,
+           serial_wall_s=flight["serial_s"],
+           pipelined_wall_s=flight["pipelined_s"],
+           pipelined_over_serial=(statistics.median(flight["pipelined_s"])
+                                  / statistics.median(flight["serial_s"])))
+
+    def evaluate(rep, label):
+        """Conservation, == run_naive bitwise and 3 batched launches per
+        wave for one replay; returns its record fields."""
+        srv, done = rep["srv"], rep["done"]
+        req_of = {int(t_): r_ for t_, r_ in zip(rep["tickets"], reqs)}
+        shed_ids = sorted(req_of[int(t_)].request_id for t_ in srv.shed_log)
+        ids = sorted(r_.request_id for r_ in done)
+        check(sorted(ids + shed_ids) == sorted(r_.request_id for r_ in reqs),
+              f"{label}: {len(ids)} delivered + {len(shed_ids)} shed != "
+              f"{OVER_REQUESTS} submitted")
+        bitwise_naive(done, naive, label)
+        counts, w_ = rep["counts"], rep["waves"]
+        check(counts["tile_nnz_batched"] == 3 * len(w_)
+              and counts["dispatch"] > 0 and counts["tile_nnz"] > 0,
+              f"{label}: {counts} for {len(w_)} waves")
+        by_arrival = {r_.request_id: a_ for r_, a_ in
+                      zip(reqs, rep["abs_arrival"])}
+        lat = [r_.completed_at - by_arrival[r_.request_id] for r_ in done]
+        met = sum(bool(r_.deadline_met) for r_ in done)
+        span = (max(r_.completed_at for r_ in done) - rep["t0"]
+                if done else 0.0)
+
+        def mean_ms(key):
+            return float(np.mean([x_[key] for x_ in w_]) * 1e3)
+
+        return dict(
+            submitted=OVER_REQUESTS, delivered=len(done),
+            shed_count=len(shed_ids), shed_at_submit=srv.shed_at_submit,
+            shed_under_pressure=srv.shed_under_pressure,
+            met=met, missed=len(done) - met,
+            overall_hit_rate=met / OVER_REQUESTS,
+            admitted_hit_rate=met / len(done) if done else 1.0,
+            reference_admitted_floor=ADMITTED_FLOOR,
+            goodput_rps=met / span if span else 0.0, span_s=span,
+            p50_sojourn_ms=float(np.percentile(lat, 50) * 1e3),
+            p99_sojourn_ms=float(np.percentile(lat, 99) * 1e3),
+            waves=len(w_), wave_loads=[x_["n_real"] for x_ in w_],
+            cut_reasons=dict(collections.Counter(x_["reason"] for x_ in w_)),
+            mean_estimate_ms=mean_ms("estimate_s"),
+            mean_launch_to_ready_ms=mean_ms("launch_to_ready_s"),
+            mean_marginal_wall_ms=mean_ms("marginal_wall_s"),
+            mean_sojourn_from_cut_ms=mean_ms("sojourn_from_cut_s"),
+            median_marginal_over_estimate=float(np.median(
+                [x_["marginal_wall_s"] / x_["estimate_s"] for x_ in w_])),
+            per_wave=w_,
+            submit_ms_mean=float(np.mean(rep["submit_s"]) * 1e3),
+            peak_pressure_s=srv.peak_pressure,
+            class_stats={f"{t_}/p{p_}": dataclasses.astuple(s_)
+                         for (t_, p_), s_ in sorted(srv.class_stats.items())},
+            launches=counts, bitwise_naive=True)
+
+    prof = None
+    for load in OVER_LOADS:
+        rate = load * capacity
+        arrivals = np.cumsum(np.random.default_rng(OVER_SEED).exponential(
+            1.0 / rate, OVER_REQUESTS))
+        for shed in ("never", "predicted-miss"):
+            label = f"x{load} {shed}"
+            runs = []
+
+            def run():
+                runs.append(replay(
+                    torch, np, K, eng, reqs, arrivals, budget, shed=shed,
+                    warm_reqs=warm_reqs,
+                    pressure_threshold=(budget / 2 if shed == "predicted-miss"
+                                        else float("inf"))))
+
+            if prof is None:
+                # the first replay is also the profiler's warm-up call;
+                # the device busy and idle share are those of a second
+                # replay of the same stream
+                prof = profile_device(torch, run, n=1, top=8)
+                prof_fields = evaluate(runs[-1], label + " profiled")
+                prof.update(label=label, **{k_: prof_fields[k_] for k_ in (
+                    "delivered", "shed_count", "met", "span_s", "waves")})
+            else:
+                run()
+            record("continuous_replay", card=card, load=load, shed=shed,
+                   n_lanes=1, arrival_rate_rps=rate,
+                   **evaluate(runs[0], label))
+    del eng, reqs, warm_reqs, naive, waves, got, outs, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    record("continuous_full_width", card=card, model="sage", f_in=CI_F_IN,
+           hidden=16, classes=CI_CLASSES, requests=OVER_REQUESTS,
+           sizes=list(CI_SIZES), avg_degree=CI_DEGREE, feat_density=CI_FEAT,
+           slots=4, buckets=CI_BUCKETS, make_requests_s=make_s,
+           sync_serve_wall_s=serve_wall, capacity_rps=capacity,
+           wave_wall_ms=wave_wall * 1e3, budget_ms=budget * 1e3,
+           request_cost_ms=[t_ * 1e3 for t_ in cost_s],
+           request_cost_ms_mean=float(np.mean(cost_s) * 1e3),
+           replay_profiled=prof,
+           host_memory={"start": mem_start, "end": host_memory(torch),
+                        "end_trimmed": host_memory(torch, trim=True)},
+           seconds=time.perf_counter() - t_part)
+
+
 LM_ARCH = "llama3.2-1b"
 SCORE_BATCH, SCORE_SEQ = 2, 2048
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 128, 16
@@ -1973,7 +2502,7 @@ def wall_ms(torch, fn, n: int = 5) -> float:
     return statistics.median(ts)
 
 
-SENTINELS = 4         # spin kernels opening each profiler window
+SENTINELS = 32        # spin kernels opening each profiler window
 WINDOWS = 4           # profiler windows taken at most, until one is whole
 
 
@@ -1989,7 +2518,9 @@ def profile_device(torch, fn, n: int = 3, top: int = 10) -> dict:
     call launches a whole number of each kernel, so a window whose counts
     are not multiples of ``n`` still lost events: it is taken again, up
     to ``WINDOWS`` times.  When none is whole, ``complete`` is False and
-    the device numbers read "not measured"."""
+    the device numbers read "not measured".  How many events a window
+    drops grows as the process runs: past 4 after phase 5d's replays,
+    hence ``SENTINELS`` 32."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()

@@ -8,10 +8,12 @@ formulas, so the planner makes the same decisions as the reference:
   constants are the TPU's (``hw.TPU_V5E``).  It is kept because the
   reference planner uses it; it does not model the GPU.
 
-``cycles`` accepts host numpy arrays (report bookkeeping, in
-float64) or torch tensors; ``select_traced`` and ``select_format_traced``
-take float32 tensors on any device and keep the reference's float32
-operation order.  A divisor that is a Python number is first made a tensor
+``cycles`` accepts host numbers and numpy arrays (report bookkeeping,
+``GraphServeEngine.request_cost``) in the reference's host operation
+order, or torch tensors; ``select`` is the host decision for one pair of
+Python floats; ``select_traced`` and ``select_format_traced`` take float32
+tensors on any device and keep the reference's compiled float32 operation
+order.  A divisor that is a Python number is first made a tensor
 on the operand's device: CUDA's true division by a host scalar multiplies
 by its reciprocal, which rounds differently and would move decisions that
 sit on a threshold.
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -106,6 +108,17 @@ class FPGACostModel:
             return self.spmm_cycles(m, n, d, a_x, a_y)
         raise ValueError(f"unknown primitive {primitive}")
 
+    def select(self, a_x: float, a_y: float) -> Primitive:
+        """Algorithm 7 for one partition pair, on the host."""
+        a_min, a_max = min(a_x, a_y), max(a_x, a_y)
+        if a_min == 0.0:
+            return Primitive.SKIP
+        if a_min >= 0.5:
+            return Primitive.GEMM
+        if a_max >= 2.0 / self.p_sys:
+            return Primitive.SPDMM
+        return Primitive.SPMM
+
     def select_traced(self, a_x: torch.Tensor, a_y: torch.Tensor
                       ) -> torch.Tensor:
         """Vectorized Algorithm 7 on tensors: int32 Primitive codes."""
@@ -153,10 +166,13 @@ class TPUCostModel:
     def spdmm_seconds(self, m, n, d, b_x, b_y) -> ArrayLike:
         b_min = _minimum(b_x, b_y)
         flops = 2.0 * b_min * m * n * d
-        # the two constant terms are summed first: XLA folds
-        # (x + n*d) + m*d into x + (n*d + m*d) in the reference's compiled
-        # planner, and the two orders round differently in float32
-        bytes_moved = (b_min * m * n + (n * d + m * d)) * self.dtype_bytes
+        if _is_t(b_x, b_y):
+            # the two constant terms are summed first: XLA folds
+            # (x + n*d) + m*d into x + (n*d + m*d) in the reference's
+            # compiled planner, and the two orders round differently
+            bytes_moved = (b_min * m * n + (n * d + m * d)) * self.dtype_bytes
+        else:                       # the reference's host order
+            bytes_moved = (b_min * m * n + n * d + m * d) * self.dtype_bytes
         return self._roofline_seconds(flops, bytes_moved, self.eff_spdmm)
 
     def spmm_seconds(self, m, n, d, b_x, b_y) -> ArrayLike:
@@ -177,6 +193,19 @@ class TPUCostModel:
 
     def cycles(self, primitive, m, n, d, b_x, b_y):
         return self.seconds(primitive, m, n, d, b_x, b_y)
+
+    def select(self, b_x: float, b_y: float, m=128, n=128, d=128
+               ) -> Primitive:
+        """The host decision for one pair of tile densities: the first
+        minimum of the predicted seconds, SKIP when ``min(b_x, b_y) == 0``."""
+        if min(b_x, b_y) == 0.0:
+            return Primitive.SKIP
+        costs = {
+            Primitive.GEMM: float(self.gemm_seconds(m, n, d)),
+            Primitive.SPDMM: float(self.spdmm_seconds(m, n, d, b_x, b_y)),
+            Primitive.SPMM: float(self.spmm_seconds(m, n, d, b_x, b_y)),
+        }
+        return min(costs, key=costs.get)
 
     def select_traced(self, b_x: torch.Tensor, b_y: torch.Tensor,
                       m=128, n=128, d=128) -> torch.Tensor:
@@ -228,3 +257,39 @@ class TPUCostModel:
             m, n, d, rmax)
         fits = nnz * self.csr_fill_slack <= rmax * m
         return ((csr_s < block_s) & fits).to(torch.int32)
+
+
+@dataclasses.dataclass
+class CostCalibration:
+    """EWMA calibration from Analyzer cost units to measured wall seconds.
+
+    The Table IV models predict *relative* cost (cycles on the FPGA model,
+    roofline seconds of another device on the TPU model).  The continuous
+    scheduler's admission control needs absolute seconds to compare a
+    predicted completion with a deadline, so it folds every observed
+    ``(predicted cost, measured wall)`` pair of a dispatched wave into an
+    EWMA of seconds per cost unit and converts per-request costs
+    (``GraphServeEngine.request_cost``) through it.
+
+    ``seconds`` returns ``fallback`` until the first observation.
+    Zero-cost or zero-wall observations are skipped: an all-SKIP wave's
+    wall is launch overhead, not a unit rate.
+    """
+
+    alpha: float = 0.25
+    seconds_per_unit: Optional[float] = None
+
+    def observe(self, cost_units: float, wall_seconds: float) -> None:
+        if cost_units <= 0.0 or wall_seconds <= 0.0:
+            return
+        rate = float(wall_seconds) / float(cost_units)
+        if self.seconds_per_unit is None:
+            self.seconds_per_unit = rate
+        else:
+            self.seconds_per_unit += self.alpha * (rate
+                                                   - self.seconds_per_unit)
+
+    def seconds(self, cost_units: float, fallback: float = 0.0) -> float:
+        if self.seconds_per_unit is None:
+            return fallback
+        return float(cost_units) * self.seconds_per_unit

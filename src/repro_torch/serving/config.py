@@ -1,8 +1,10 @@
-"""Consolidated serving configuration: :class:`EngineConfig`.
+"""Consolidated serving configuration: :class:`EngineConfig` and
+:class:`ServeConfig`.
 
-Port of the engine half of ``repro.serving.config``.  Everything
-:class:`~repro_torch.serving.graph_engine.GraphServeEngine` is built from
-lives in one frozen dataclass; the engine accepts ``config=`` while every
+Port of ``repro.serving.config``.  Everything
+:class:`~repro_torch.serving.graph_engine.GraphServeEngine` and
+:class:`~repro_torch.serving.scheduler.ContinuousGraphServer` are built
+from lives in two frozen dataclasses; both accept ``config=`` while every
 keyword keeps working, under one merge rule (``merge_config``):
 
 * kwargs explicitly passed at the call site override the matching config
@@ -12,15 +14,15 @@ keyword keeps working, under one merge rule (``merge_config``):
 * passing the same value both ways is a harmless duplicate;
 * with no ``config=``, kwargs build the config.
 
-The resolved config is kept on the engine (``.config``), and
-``GraphServeEngine.from_config(eng.config)`` builds an equivalent engine.
-``ServeConfig`` (the continuous scheduler's knobs) comes with the
-scheduler.
+The resolved config is kept on the object (``.config``), and
+``from_config`` builds an equivalent one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import math
+import time
+from typing import Any, Callable, Dict, Optional
 
 _UNSET = object()        # sentinel: "kwarg not passed at the call site"
 
@@ -137,6 +139,103 @@ class EngineConfig:
 
     def __eq__(self, other):
         if not isinstance(other, EngineConfig):
+            return NotImplemented
+        return all(_same(getattr(self, f.name), getattr(other, f.name))
+                   for f in dataclasses.fields(self))
+
+    __hash__ = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Every knob :class:`ContinuousGraphServer` is built from.  The
+    reference's ``resize``, ``autoscale`` and ``minibatch`` are left out:
+    nothing in the port reads them yet (multi-device lanes and mini-batch
+    serving are ``ROADMAP.md`` queue 1 items 7 and 5).
+
+    The wave-cutting policy:
+
+    * ``clock`` -- the time source every deadline and arrival is measured
+      on (monotonic seconds; tests inject a fake clock here).
+    * ``ewma_alpha`` -- smoothing factor in (0, 1] of the per-bucket
+      wave-wall estimates behind deadline slack (higher reacts faster).
+    * ``cold_start_wall`` -- assumed wave wall (seconds) of a bucket with
+      no measurement yet.
+    * ``slack_margin`` -- a queued request forces a cut once its slack is
+      below ``slack_margin`` x the bucket's wait bound (> 1 cuts earlier).
+    * ``batch_patience`` -- how long a partial wave waits for more
+      requests when nobody is urgent, as a multiple of the estimated wall.
+    * ``max_wait`` -- hard age bound (seconds): a wave is force-cut once
+      its oldest request has waited this long.
+    * ``n_lanes`` -- dispatch lanes pulling cut waves (``None`` = one per
+      device, so 1).  On one device the waves kept in flight are
+      ``min(n_lanes, 2)`` (``ContinuousGraphServer.pipeline_depth``), so
+      a value above 2 behaves as 2: it adds lane labels, each with its
+      own wall EWMA, but no concurrency.  Measured on the H100, two waves
+      in flight were within noise of one (``PERF.md``).
+
+    The overload control:
+
+    * ``shed`` -- ``"never"`` admits everything; ``"predicted-miss"``
+      rejects requests whose predicted completion already misses their
+      deadline (and sheds queued ones that can no longer make it);
+      ``"capacity"`` rejects once ``max_pending`` requests are queued.
+    * ``admit_margin`` -- slack multiple under which an admitted request
+      is ``"admit-at-risk"`` instead of ``"admit"`` (>= 1).
+    * ``max_pending`` -- queue bound for ``shed="capacity"``.
+    * ``pressure_threshold`` -- backlog bound (seconds) above which
+      at-risk queued requests are shed lowest class first (``inf`` =
+      never).
+    * ``priority_weight`` -- a priority-``p`` wave's class weight is
+      ``priority_weight ** p`` in the weighted-fair launch order.
+    """
+
+    clock: Callable[[], float] = time.monotonic
+    ewma_alpha: float = 0.25
+    cold_start_wall: float = 0.05
+    slack_margin: float = 1.5
+    batch_patience: float = 1.0
+    max_wait: float = 0.25
+    n_lanes: Optional[int] = None
+    shed: str = "never"
+    admit_margin: float = 1.5
+    max_pending: Optional[int] = None
+    pressure_threshold: float = math.inf
+    priority_weight: float = 2.0
+
+    def validate(self) -> "ServeConfig":
+        if not 0.0 < self.ewma_alpha <= 1.0:
+            raise ValueError(f"ewma_alpha {self.ewma_alpha} not in (0, 1]")
+        # a negative max_wait would force-cut every tick and a negative
+        # slack_margin invert the deadline comparison
+        for name in ("cold_start_wall", "slack_margin", "batch_patience",
+                     "max_wait"):
+            v = getattr(self, name)
+            if not v >= 0.0:            # also catches NaN
+                raise ValueError(f"{name} {v} must be >= 0")
+        if self.n_lanes is not None and self.n_lanes < 1:
+            raise ValueError(f"n_lanes {self.n_lanes} < 1")
+        if self.shed not in ("never", "predicted-miss", "capacity"):
+            raise ValueError(
+                f"shed {self.shed!r} not in 'never' | 'predicted-miss' | "
+                f"'capacity'")
+        if self.shed == "capacity" and (self.max_pending is None
+                                        or self.max_pending < 1):
+            raise ValueError(
+                f"shed='capacity' needs max_pending >= 1, got "
+                f"{self.max_pending}")
+        if not self.admit_margin >= 1.0:
+            raise ValueError(f"admit_margin {self.admit_margin} must be >= 1")
+        if not self.pressure_threshold > 0.0:
+            raise ValueError(
+                f"pressure_threshold {self.pressure_threshold} must be > 0")
+        if not self.priority_weight > 0.0:
+            raise ValueError(
+                f"priority_weight {self.priority_weight} must be > 0")
+        return self
+
+    def __eq__(self, other):
+        if not isinstance(other, ServeConfig):
             return NotImplemented
         return all(_same(getattr(self, f.name), getattr(other, f.name))
                    for f in dataclasses.fields(self))

@@ -24,9 +24,14 @@ input.  :class:`GraphServeEngine` runs that loop over the fused executor:
   (:meth:`GraphServeEngine.run_naive`, the oracle), whatever the admission
   order or the wave's other requests.
 
-Not ported yet: the cost-aware slot placement (``request_cost``) and the
-sharded dispatch (``mesh``/``submesh``), which come with the continuous
-scheduler and sharded waves (``ROADMAP.md`` queue 1 items 4 and 7).
+* **Online serving.**  :meth:`GraphServeEngine.cut_wave`,
+  :meth:`GraphServeEngine.request_cost` and the deadline fields of
+  :class:`GraphResult` are what ``serving.scheduler.ContinuousGraphServer``
+  reads to serve requests that arrive over time.
+
+Not ported yet: the sharded dispatch (``mesh``/``submesh``, slot placement
+over lanes), which comes with sharded waves (``ROADMAP.md`` queue 1 item
+7).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import compiler, runtime
 from repro_torch.core.compiler import CompiledModel, GraphMeta
+from repro_torch.core.perf_model import Primitive
 from repro_torch.data import graphs as graph_data
 from repro_torch.models import gnn as gnn_models
 from repro_torch.serving.config import UNSET, EngineConfig, merge_config
@@ -68,6 +74,18 @@ class GraphResult:
     logits: np.ndarray              # (n, n_classes), padding rows sliced off
     bucket: int                     # padded vertex count the wave ran at
     wave: int                       # admission wave index (-1: run_naive)
+    # continuous-serving metadata (serving.scheduler fills these in; the
+    # synchronous serve()/run_naive() paths leave them None)
+    deadline: Optional[float] = None      # absolute clock deadline, if any
+    completed_at: Optional[float] = None  # clock time the wave finished
+
+    @property
+    def deadline_met(self) -> Optional[bool]:
+        """True/False under the continuous scheduler; None when the result
+        came from a path with no deadline accounting."""
+        if self.deadline is None or self.completed_at is None:
+            return None
+        return self.completed_at <= self.deadline
 
 
 @dataclasses.dataclass
@@ -293,6 +311,24 @@ class GraphServeEngine:
         self._fill_slot(req, out)
         return out
 
+    def cut_wave(self, entries: Sequence, *, force: bool = False
+                 ) -> Tuple[list, list]:
+        """Cut at most one wave off the front of a FIFO of entries.
+
+        Returns ``(wave, rest)``: the first ``slots`` entries when a full
+        wave is available; the whole (short) remainder when ``force`` is
+        set (a deadline-, age- or drain-triggered partial wave); otherwise
+        an empty wave and ``entries`` unchanged.  The synchronous
+        :meth:`serve` and the continuous scheduler share it, so a wave
+        never holds more than ``slots`` requests and each request lands in
+        exactly one wave."""
+        entries = list(entries)
+        if len(entries) >= self.slots:
+            return entries[: self.slots], entries[self.slots:]
+        if force and entries:
+            return entries, []
+        return [], entries
+
     def _admit(self, requests: Sequence[GraphRequest]
                ) -> Dict[int, List[List[Tuple[int, GraphRequest]]]]:
         """Group by bucket (first-seen order), then cut into waves of at
@@ -303,9 +339,42 @@ class GraphServeEngine:
             self._validate(req)
             by_bucket.setdefault(self.bucket_for(req.n_vertices), []
                                  ).append((idx, req))
-        return {bucket: [entries[i: i + self.slots]
-                         for i in range(0, len(entries), self.slots)]
-                for bucket, entries in by_bucket.items()}
+        out: Dict[int, List[List[Tuple[int, GraphRequest]]]] = {}
+        for bucket, entries in by_bucket.items():
+            waves = []
+            while entries:
+                wave, entries = self.cut_wave(entries, force=True)
+                waves.append(wave)
+            out[bucket] = waves
+        return out
+
+    def request_cost(self, req: GraphRequest) -> float:
+        """Analyzer-predicted cost of one request (relative units): the
+        Table IV cost of its Aggregate product at its measured adjacency
+        and feature densities, under the engine's cost model -- the model
+        the planner minimizes over, at request granularity.  The
+        continuous scheduler's admission control converts it to seconds
+        (``perf_model.CostCalibration``).
+
+        Host numpy, as the reference computes it, so the float is the
+        reference's.  Memoized on the request object under the engine's
+        (cost model, f_in): requests are immutable once validated, and a
+        request shared between engines with other models is re-costed."""
+        memo_key = (self.executor.model, self.f_in)
+        cached = getattr(req, "_dynasparse_cost", None)
+        if cached is not None and cached[0] == memo_key:
+            return cached[1]
+        adj = np.asarray(req.adjacency)
+        feat = np.asarray(req.features)
+        n = max(req.n_vertices, 1)
+        d_adj = float(np.count_nonzero(adj)) / max(adj.size, 1)
+        d_feat = float(np.count_nonzero(feat)) / max(feat.size, 1)
+        model = self.executor.model
+        prim = model.select(d_adj, d_feat)
+        cost = (0.0 if prim == Primitive.SKIP else
+                float(model.cycles(prim, n, n, self.f_in, d_adj, d_feat)))
+        req._dynasparse_cost = (memo_key, cost)
+        return cost
 
     # -- execution ----------------------------------------------------------
     def begin_wave(self, bucket: int, wave: Sequence[GraphRequest]

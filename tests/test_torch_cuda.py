@@ -890,3 +890,50 @@ def test_graph_serving_matches_naive_on_the_card(cuda, model):
                                                                wave[::-1])
     for g, w_ in zip(got, want):
         assert np.array_equal(g.logits, w_.logits)
+
+
+@pytest.mark.parametrize("model", ["gcn", "sage"])
+def test_continuous_two_waves_in_flight_equal_one(cuda, model):
+    """ContinuousGraphServer on the card: with two lanes (two waves in
+    flight) every result is bitwise what one lane gives, and both are
+    run_naive's; begin_wave makes no host synchronization while a wave is
+    in flight (the sync debug mode raises on one)."""
+    from repro_torch.serving.graph_engine import (GraphServeEngine,
+                                                  random_requests)
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+    reqs = random_requests(9, f_in=64, sizes=(56, 100, 150), seed=7)
+    out = {}
+    for n_lanes in (1, 2):
+        eng = GraphServeEngine(model, f_in=64, hidden=16, n_classes=7,
+                               slots=2, device=cuda)
+        srv = ContinuousGraphServer(eng, n_lanes=n_lanes)
+        begin, live = eng.begin_wave, []
+
+        def begin_wave(bucket, wave):
+            if live:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                handle = begin(bucket, wave)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            live.append(handle)
+            return handle
+
+        finish = eng.finish_wave
+
+        def finish_wave(handle):
+            live.remove(handle)
+            return finish(handle)
+
+        eng.begin_wave, eng.finish_wave = begin_wave, finish_wave
+        for r in reqs:
+            assert srv.submit(r).admitted
+        out[n_lanes] = {r.request_id: r for r in srv.drain()}
+        assert srv.pipeline_depth == n_lanes and not live
+        assert len(out[n_lanes]) == len(reqs)
+        naive = eng.run_naive(reqs)
+        for n in naive:
+            assert np.array_equal(out[n_lanes][n.request_id].logits,
+                                  n.logits), n.request_id
+    for rid, res in out[1].items():
+        assert np.array_equal(out[2][rid].logits, res.logits)
