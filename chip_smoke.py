@@ -806,6 +806,9 @@ def main() -> int:
     # ---------------- phase 5d: continuous serving -----------------------
     continuous_phase(torch, np, K, dev, card)
 
+    # ---------------- phase 5e: mini-batch serving -----------------------
+    minibatch_phase(torch, np, K, dev, card)
+
     # ---------------- phase 6: the per-primitive path (ops.matmul) --------
     K.reset_launch_counts()
     for prim in (Primitive.GEMM, Primitive.SPDMM, Primitive.SPMM):
@@ -2071,6 +2074,437 @@ def continuous_phase(torch, np, K, dev, card) -> None:
            host_memory={"start": mem_start, "end": host_memory(torch),
                         "end_trimmed": host_memory(torch, trim=True)},
            seconds=time.perf_counter() - t_part)
+
+
+# bench_serving.py:844-943 (_bench_minibatch), at Reddit's widths
+# (TABLE_VI["RE"], src/repro/data/graphs.py:54: 232,965 vertices, 602
+# features, hidden 128, 41 classes): one power-law host graph at the
+# ladder's degree recipe (avg_degree 8, seed 0), its features drawn from
+# default_rng(3), 200 queries of 1-4 seeds under powerlaw_marginal weights
+# at alpha 1.6 from the same generator, fanouts (8, 4), cache 4096,
+# arrival chunks of 8, waves of 8, FPGA model, dynamic.  The reference's
+# floors (hit-rate 0.5, 2.0x naive seeds/s) are printed, not gated.
+MB_VERTICES, MB_DEGREE, MB_F_IN, MB_HIDDEN, MB_CLASSES = (232_965, 8, 602,
+                                                          128, 41)
+MB_QUERIES, MB_ALPHA, MB_FANOUTS, MB_CACHE, MB_CHUNK = (200, 1.6, (8, 4),
+                                                        4096, 8)
+MB_SLOTS, MB_BUCKET = 8, 64         # 1 + 8 + 32 = 41 vertices at most
+# busy and idle are profiled over the first 3 chunks of a cold pass: on
+# an H100 machine the profiler's own processing of a whole pass's events
+# took 31-37 s a model
+MB_PROFILED = 24
+MB_HIT_FLOOR, MB_SPEEDUP_FLOOR = 0.5, 2.0
+# (b): an edge delta of 8 inserts and 8 deletes every 25 queries, drawn
+# from default_rng(5); the 16 most-queried vertices' rows updated once,
+# at query 100
+MB_DELTA_EVERY, MB_DELTA_EDGES, MB_UPDATE_AT, MB_HOT = 25, 8, 100, 16
+
+
+def minibatch_phase(torch, np, K, dev, card) -> None:
+    """Phase 5e: mini-batch serving over one giant graph.
+
+    (a) the reference's mini-batch ladder at Reddit's widths, GCN and
+    SAGE: the naive per-seed loop (sample, then ``run_naive``) is the
+    oracle, and every row ``MiniBatchServeEngine.serve_queries`` gives must
+    equal its seed's naive row bitwise; the cache counters must conserve
+    and every wave must launch what one ``run_batch`` wave of the same
+    model and bucket launches.  Seeds/s both ways, hit-rate, waves and
+    padding, sample, cache, gather and launch-to-ready seconds, and the
+    device's busy and idle share over the first chunks of a cold pass.  (b) GAT through
+    ``ContinuousGraphServer.submit_query`` with a real clock, an edge
+    delta every 25 queries and one store update: every query completes,
+    each delivered request is ``sample_subgraph`` on its graph version and
+    ``run_naive`` of itself bitwise, every query's rows and every final
+    cache entry are bitwise the oracle at the graph and store versions of
+    its submission (the final ones for the cache), and each delta's
+    patched profile and replan count equal a profile from scratch and two
+    full ``plan_codes`` replans on the card."""
+    import collections
+    from repro_torch.core import analyzer
+    from repro_torch.data.graphs import powerlaw_marginal
+    from repro_torch.data.sampling import (AdjacencyBlockProfile,
+                                           powerlaw_host_graph,
+                                           sample_subgraph, vertex_seed)
+    from repro_torch.serving.graph_engine import (GraphRequest,
+                                                  GraphServeEngine)
+    from repro_torch.serving.minibatch import (FeatureStore,
+                                               MiniBatchPlanner,
+                                               MiniBatchServeEngine,
+                                               SeedRequest, VertexCache)
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    graph = powerlaw_host_graph(MB_VERTICES, avg_degree=MB_DEGREE, seed=0)
+    graph_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    features = rng.standard_normal((MB_VERTICES, MB_F_IN), dtype=np.float32)
+    store_s = time.perf_counter() - t0
+    w = powerlaw_marginal(MB_VERTICES, rng, alpha=MB_ALPHA)
+    queries = [rng.choice(MB_VERTICES, size=int(rng.integers(1, 5)),
+                          p=w).tolist() for _ in range(MB_QUERIES)]
+    n_seed_runs = sum(len(dict.fromkeys(q)) for q in queries)
+    distinct = len({v for q in queries for v in q})
+    record("minibatch_graph", card=card, vertices=graph.n_vertices,
+           edges=graph.n_edges, mean_degree=graph.n_edges / graph.n_vertices,
+           max_degree=int(graph.degrees.max()), graph_s=graph_s,
+           store_mb=features.nbytes / 2**20, store_s=store_s,
+           queries=MB_QUERIES, seed_runs=n_seed_runs,
+           distinct_seeds=distinct, numpy=np.__version__)
+
+    def timed(fn, acc):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc.append(time.perf_counter() - t)
+        return wrapper
+
+    # ---- (a) the mini-batch ladder, GCN and SAGE --------------------------
+    for model in ("gcn", "sage"):
+        t_model = time.perf_counter()
+        store = FeatureStore(features)
+        eng = GraphServeEngine(model, f_in=MB_F_IN, hidden=MB_HIDDEN,
+                               n_classes=MB_CLASSES, slots=MB_SLOTS,
+                               weight_seed=0, device=dev)
+        # parity first, on a throwaway front end (its own cold cache), which
+        # also builds the bucket's walk plan and warms the naive engine
+        warm = MiniBatchServeEngine(eng, graph, store, fanouts=MB_FANOUTS,
+                                    cache_capacity=MB_CACHE)
+        for t_, want in zip(warm.serve_queries(queries[:4]),
+                            warm.oracle_queries(queries[:4])):
+            check(np.array_equal(t_.result(), want),
+                  f"minibatch {model}: query {t_.query_id} != its oracle")
+        # one run_batch wave of this model and bucket: the launches every
+        # mini-batch wave must make
+        one = warm.planner.request_for(queries[0][0])
+        check(eng.bucket_for(one.n_vertices) == MB_BUCKET,
+              f"minibatch {model}: a subgraph left bucket {MB_BUCKET}")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        eng.dispatch_wave(MB_BUCKET, [one])
+        torch.cuda.synchronize()
+        wave_counts = K.launch_counts()
+        # the naive loop, and the oracle: per query, per unique seed,
+        # sample then one run_naive
+        naive_rows = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in queries:
+            for v in dict.fromkeys(q):
+                req = SeedRequest(warm.planner.sample(v), store,
+                                  request_id=-1)
+                row = eng.run_naive([req])[0].logits[0]
+                if v in naive_rows:
+                    check(np.array_equal(naive_rows[v], row),
+                          f"minibatch {model}: naive rows of {v} differ")
+                naive_rows[v] = row
+        t_naive = time.perf_counter() - t0
+        # the mini-batch pass, cold cache, in arrival chunks
+        mb = MiniBatchServeEngine(eng, graph, store, fanouts=MB_FANOUTS,
+                                  cache_capacity=MB_CACHE)
+        planner = mb.planner
+        sample_s, lookup_s, complete_s, waves = [], [], [], []
+        planner.sample = timed(planner.sample, sample_s)
+        planner.lookup = timed(planner.lookup, lookup_s)
+        planner.complete = timed(planner.complete, complete_s)
+        dispatch = eng.dispatch_wave
+
+        def dispatch_wave(bucket, wave):
+            before = K.launch_counts()
+            res = dispatch(bucket, wave)
+            rep = eng.last_wave_report
+            after = K.launch_counts()
+            waves.append({"bucket": bucket, "real": len(wave),
+                          "gather_s": rep.gather_seconds,
+                          "copy_s": rep.copy_seconds,
+                          "launch_to_ready_s": rep.fused_wall_seconds,
+                          "launches": {k_: after[k_] - before[k_]
+                                       for k_ in after}})
+            return res
+
+        eng.dispatch_wave = dispatch_wave
+        w0 = eng.waves
+        tickets = []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(0, MB_QUERIES, MB_CHUNK):
+            tickets += mb.serve_queries(queries[i:i + MB_CHUNK])
+        torch.cuda.synchronize()
+        t_mb = time.perf_counter() - t0
+        counts = K.launch_counts()
+        del eng.dispatch_wave
+        for name in ("tile_nnz_batched", "tile_nnz", "dispatch"):
+            check(counts[name] > 0, f"minibatch {model} never launched "
+                                    f"{name}")
+        check(len(waves) == eng.waves - w0 and waves,
+              f"minibatch {model}: waves went around dispatch_wave")
+        for t_ in tickets:
+            check(t_.done, f"minibatch {model}: query {t_.query_id} open")
+            got = t_.result()
+            check(got.shape == (len(t_.seeds), MB_CLASSES)
+                  and bool(np.isfinite(got).all()),
+                  f"minibatch {model}: query {t_.query_id} malformed")
+            for row, v in zip(got, t_.seeds):
+                check(np.array_equal(row, naive_rows[v]),
+                      f"minibatch {model}: seed {v} of query "
+                      f"{t_.query_id} != its naive run_naive row")
+        s = mb.cache.stats
+        check(s.hits + s.misses == s.lookups and s.insertions
+              == s.evictions + s.invalidations + len(mb.cache),
+              f"minibatch {model}: cache counters do not conserve "
+              f"{s.as_dict()} with {len(mb.cache)} resident")
+        for w_ in waves:
+            check(w_["bucket"] == MB_BUCKET and w_["launches"]
+                  == wave_counts, f"minibatch {model}: a wave of bucket "
+                  f"{w_['bucket']} launched {w_['launches']}, one "
+                  f"run_batch wave {wave_counts}")
+        del planner.sample, planner.lookup, planner.complete
+
+        def cold_pass():
+            fresh = MiniBatchServeEngine(eng, graph, store,
+                                         fanouts=MB_FANOUTS,
+                                         cache_capacity=MB_CACHE)
+            for i in range(0, MB_PROFILED, MB_CHUNK):
+                fresh.serve_queries(queries[i:i + MB_CHUNK])
+
+        t0 = time.perf_counter()
+        prof = profile_device(torch, cold_pass, n=1, top=8)
+        profile_s = time.perf_counter() - t0
+        n_waves = len(waves)
+        gather = [w_["gather_s"] for w_ in waves]
+        walk = [w_["launch_to_ready_s"] for w_ in waves]
+        loads = sum(w_["real"] for w_ in waves)
+        naive_sps, mb_sps = n_seed_runs / t_naive, n_seed_runs / t_mb
+        record("minibatch_ladder", card=card, model=model,
+               vertices=graph.n_vertices, edges=graph.n_edges,
+               f_in=MB_F_IN, hidden=MB_HIDDEN, classes=MB_CLASSES,
+               slots=MB_SLOTS, fanouts=list(MB_FANOUTS),
+               cache_capacity=MB_CACHE, chunk=MB_CHUNK,
+               traffic_alpha=MB_ALPHA, queries=MB_QUERIES,
+               seed_runs=n_seed_runs, naive_s=t_naive, minibatch_s=t_mb,
+               naive_seeds_per_s=naive_sps,
+               minibatch_seeds_per_s=mb_sps, speedup=mb_sps / naive_sps,
+               speedup_floor_reference=MB_SPEEDUP_FLOOR,
+               hit_rate=s.hit_rate, hit_floor_reference=MB_HIT_FLOOR,
+               cache=s.as_dict(), resident=len(mb.cache), waves=n_waves,
+               buckets=sorted({w_["bucket"] for w_ in waves}),
+               padding_efficiency=loads / (n_waves * MB_SLOTS),
+               samples=len(sample_s),
+               sample_ms_per_seed=float(np.mean(sample_s)) * 1e3,
+               sample_s=float(np.sum(sample_s)),
+               cache_s=float(np.sum(lookup_s) + np.sum(complete_s)),
+               cache_us_per_lookup=float(np.mean(lookup_s)) * 1e6,
+               gather_ms_per_wave=float(np.mean(gather)) * 1e3,
+               gather_ms_p50=statistics.median(gather) * 1e3,
+               gather_s=float(np.sum(gather)),
+               copy_enqueue_ms_per_wave=float(np.mean(
+                   [w_["copy_s"] for w_ in waves])) * 1e3,
+               launch_to_ready_ms_per_wave=float(np.mean(walk)) * 1e3,
+               launch_to_ready_ms_p50=statistics.median(walk) * 1e3,
+               launch_to_ready_s=float(np.sum(walk)),
+               launches_per_wave=wave_counts, launches_pass=counts,
+               profiled_queries=MB_PROFILED,
+               device_busy_ms_cold_prefix=prof["device_busy_ms"],
+               idle_share_cold_prefix=prof["idle_share"],
+               wall_ms_profiled=prof["wall_ms_profiled"],
+               top_device_ops=prof["top_device_ops"],
+               bitwise_naive=True, profile_s=profile_s,
+               seconds=time.perf_counter() - t_model)
+        del eng, warm, mb, naive_rows, tickets
+
+    # ---- (b) the mutating graph, continuously, on GAT ---------------------
+    t_b = time.perf_counter()
+    store = FeatureStore(features)
+    gat = GraphServeEngine("gat", f_in=MB_F_IN, hidden=MB_HIDDEN,
+                           n_classes=MB_CLASSES, slots=MB_SLOTS,
+                           weight_seed=0, device=dev)
+    planner = MiniBatchPlanner(graph, store, fanouts=MB_FANOUTS,
+                               cache=VertexCache(MB_CACHE), model_key="gat")
+    srv = ContinuousGraphServer(gat, minibatch=planner, shed="never")
+    srv.warmup((MB_BUCKET,))
+    delivered = []
+    complete = planner.complete
+
+    def watched_complete(result):
+        req = planner._inflight[result.request_id]
+        v, row = complete(result)
+        delivered.append((req, row))
+        return v, row
+
+    planner.complete = watched_complete
+    rng5 = np.random.default_rng(5)
+    hot = np.asarray([v for v, _ in collections.Counter(
+        v for q in queries for v in q).most_common(MB_HOT)], np.int64)
+    hot_before = store.gather(hot).copy()
+    graphs = {0: graph}
+    deltas, versions, submit_at, qts = [], [], [], []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, q in enumerate(queries):
+        if i and i % MB_DELTA_EVERY == 0:
+            g = planner.graph
+            ins = []
+            while len(ins) < MB_DELTA_EDGES:
+                u, v = (int(x) for x in rng5.integers(0, MB_VERTICES, 2))
+                if u != v and not np.isin(v, g.neighbors(u)):
+                    ins.append((u, v))
+            dels = []
+            while len(dels) < MB_DELTA_EDGES:
+                u = int(rng5.integers(0, MB_VERTICES))
+                nb = g.neighbors(u)
+                if nb.size:
+                    dels.append((u, int(nb[rng5.integers(0, nb.size)])))
+            before, inflight = planner.profile, planner.inflight
+            td = time.perf_counter()
+            rep = srv.apply_delta(ins, dels)
+            deltas.append({"report": rep, "before": before,
+                           "after": planner.profile, "inflight": inflight,
+                           "apply_s": time.perf_counter() - td})
+            graphs[planner.graph_version] = planner.graph
+        if i == MB_UPDATE_AT:
+            store.update(hot, rng5.standard_normal(
+                (MB_HOT, MB_F_IN), dtype=np.float32))
+        versions.append((planner.graph_version, store.version))
+        submit_at.append(time.monotonic())
+        qts.append(srv.submit_query(q))
+        srv.poll()
+    for _ in range(50):
+        if all(qt.done for qt in qts):
+            break
+        srv.drain()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    del planner.complete
+    check(all(qt.done for qt in qts), "minibatch stream: a query never "
+          "completed")
+    for name in ("tile_nnz_batched", "tile_nnz", "dispatch", "edge_softmax"):
+        check(counts[name] > 0, f"minibatch stream never launched {name}")
+    check(any(d_["inflight"] for d_ in deltas),
+          "minibatch stream: no delta landed with requests in flight")
+
+    def features_at(vertices, sv):
+        rows = store.gather(vertices)
+        if sv == 0:                      # before the store update
+            pos = {int(v): i for i, v in enumerate(hot)}
+            for j, v in enumerate(vertices):
+                if int(v) in pos:
+                    rows[j] = hot_before[pos[int(v)]]
+        return rows
+
+    def same_subgraph(a, b):
+        return (np.array_equal(a.vertices, b.vertices)
+                and np.array_equal(a.adjacency, b.adjacency)
+                and len(a.hops) == len(b.hops)
+                and all(np.array_equal(x, y) for x, y in zip(a.hops, b.hops)))
+
+    oracle = {}
+    t0 = time.perf_counter()
+    for req, row in delivered:
+        v, gv, sv = req.vertex, req.graph_version, req.store_version
+        want = sample_subgraph(graphs[gv], [v], MB_FANOUTS,
+                               seed=vertex_seed(0, v))
+        check(same_subgraph(req.subgraph, want),
+              f"minibatch stream: request {req.request_id} (vertex {v}) is "
+              f"not sample_subgraph on graph version {gv}")
+        naive = gat.run_naive([req])[0].logits[0]
+        check(np.array_equal(row, naive), f"minibatch stream: request "
+              f"{req.request_id} != run_naive of itself")
+        oracle[(v, gv, sv)] = naive
+
+    def oracle_row(v, gv, sv):
+        key = (v, gv, sv)
+        if key not in oracle:
+            sub = sample_subgraph(graphs[gv], [v], MB_FANOUTS,
+                                  seed=vertex_seed(0, v))
+            oracle[key] = gat.run_naive([GraphRequest(
+                sub.adjacency, features_at(sub.vertices, sv),
+                request_id=-1)])[0].logits[0]
+        return oracle[key]
+
+    n_rows = 0
+    for qt, (gv, sv) in zip(qts, versions):
+        got = qt.result()
+        for row, v in zip(got, qt.seeds):
+            check(np.array_equal(row, oracle_row(v, gv, sv)),
+                  f"minibatch stream: seed {v} of query {qt.query_id} is "
+                  f"not the oracle at graph v{gv}, store v{sv}")
+            n_rows += 1
+    final = (planner.graph_version, store.version)
+    for key, (value, _) in planner.cache._entries.items():
+        check(np.array_equal(value, oracle_row(key[0], *final)),
+              f"minibatch stream: cache entry {key} is stale")
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ones = np.ones((planner.profile.counts.shape[1], 1), np.float32)
+    per_delta = []
+    for d_ in deltas:
+        rep, before, after = d_["report"], d_["before"], d_["after"]
+        scratch = AdjacencyBlockProfile.from_graph(graphs[rep.graph_version],
+                                                   planner.profile_block)
+        check(np.array_equal(after.counts, scratch.counts),
+              f"minibatch stream: delta to v{rep.graph_version}: patched "
+              "profile != a profile from scratch")
+
+        def full_codes(prof):
+            dens = torch.from_numpy(prof.densities().astype(
+                np.float32)).to(dev)
+            return analyzer.plan_codes(gat.strategy, dens, torch.from_numpy(
+                ones).to(dev), gat.executor.model)
+
+        full = (full_codes(before) != full_codes(after)).any(dim=1)
+        full = full.cpu().numpy()
+        _, touched = before.apply_delta(rep.delta)
+        mask = analyzer.delta_replan_mask(
+            gat.strategy, before.densities(), after.densities(), ones,
+            gat.executor.model, touched=touched)
+        check(np.array_equal(mask, full) and int(full.sum())
+              == rep.replan_cells, f"minibatch stream: delta to "
+              f"v{rep.graph_version}: replan mask != two full replans")
+        per_delta.append({"graph_version": rep.graph_version,
+                          "changed": rep.delta.n_changed,
+                          "touched_cells": rep.touched_cells,
+                          "replan_cells": rep.replan_cells,
+                          "total_cells": rep.total_cells,
+                          "cache_invalidated": rep.cache_invalidated,
+                          "inflight_at_delta": d_["inflight"],
+                          "apply_ms": d_["apply_s"] * 1e3})
+    delta_check_s = time.perf_counter() - t0
+    s = planner.cache.stats
+    sojourn = [((qt.completed_at if qt.completed_at is not None else t_)
+                - t_) * 1e3 for qt, t_ in zip(qts, submit_at)]
+    cached = sum(qt.from_cache for qt in qts)
+    issued = sum(len(qt.tickets) for qt in qts)
+    unique = sum(len(dict.fromkeys(qt.seeds)) for qt in qts)
+    check(issued == -2 - planner._next_rid and planner.inflight == 0,
+          "minibatch stream: issued requests and the planner disagree")
+    record("minibatch_stream", card=card, model="gat", heads=2,
+           f_in=MB_F_IN, hidden=MB_HIDDEN, classes=MB_CLASSES,
+           slots=MB_SLOTS, shed="never", queries=MB_QUERIES,
+           seeds=unique, cached_seeds=cached, issued_requests=issued,
+           coalesced_seeds=unique - cached - issued,
+           delivered_requests=len(delivered), waves=len(srv.dispatch_log),
+           cut_reasons=dict(collections.Counter(
+               w_.reason for w_ in srv.dispatch_log)),
+           deltas=per_delta, store_update_at=MB_UPDATE_AT,
+           store_updated_rows=MB_HOT, cache=s.as_dict(),
+           resident=len(planner.cache),
+           sojourn_ms_p50=float(np.percentile(sojourn, 50)),
+           sojourn_ms_p99=float(np.percentile(sojourn, 99)),
+           stream_s=stream_s, queries_per_s=MB_QUERIES / stream_s,
+           launches_stream=counts, rows_checked=n_rows,
+           oracle_runs=len(oracle), oracle_s=oracle_s,
+           delta_check_s=delta_check_s, bitwise_oracle=True,
+           seconds_b=time.perf_counter() - t_b,
+           seconds=time.perf_counter() - t_part)
+    del gat, srv, planner, store, features, oracle, graphs
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 LM_ARCH = "llama3.2-1b"

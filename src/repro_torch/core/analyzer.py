@@ -5,8 +5,9 @@ Port of ``repro.core.analyzer``.  :func:`plan_codes` is the planner: the
 (Algorithm 7), ``s1`` (HyGCN/BoostGCN), ``s2`` (AWB-GCN), ``gemm`` (dense
 lower bound).  It runs on the density tensors' device, so the executor
 plans on the GPU with no host round trip; :func:`plan_format` is the
-format half of the decision.  :func:`task_costs_host` is the numpy
-bookkeeping the engines' reports use.
+format half of the decision.  :func:`delta_replan_mask` re-selects only
+the cells a streaming edge delta touched, host numpy in and out.
+:func:`task_costs_host` is the numpy bookkeeping the engines' reports use.
 """
 from __future__ import annotations
 
@@ -72,6 +73,43 @@ def plan_codes_from_profiles(strategy: str, prof_x, prof_y, model: CostModel,
     codes = plan_codes(strategy, dens_x, dens_y, model,
                        kernel_type=kernel_type)
     return codes, dens_x, dens_y
+
+
+def delta_replan_mask(strategy: str, old_dens_x: np.ndarray,
+                      new_dens_x: np.ndarray, dens_y: np.ndarray,
+                      model: CostModel, *,
+                      touched: Optional[np.ndarray] = None) -> np.ndarray:
+    """Which lhs cells a streaming graph delta forces to REPLAN.
+
+    Returns the (I, K) bool numpy mask of lhs blocks whose K2P decision
+    against at least one rhs block changed between the old and new (I, K)
+    densities (the rhs (K, J) densities are unchanged) -- the density
+    crossed a primitive boundary.  :func:`plan_codes` is a pure function of
+    the density pair, so re-selecting only the ``touched`` cells (the
+    incremental profile patch's mask,
+    ``data.sampling.AdjacencyBlockProfile.apply_delta``; default: the
+    cells whose density changed) reproduces the diff of two full replans.
+    The selection runs on float32 CPU tensors of the touched cells only
+    (float64 inputs are rounded to float32 first, as the reference's jnp
+    does).  Static strategies never consult densities: empty mask (the
+    reference's unused ``kernel_type`` argument is left out).
+    """
+    old = np.asarray(old_dens_x)
+    new = np.asarray(new_dens_x)
+    if touched is None:
+        touched = old != new
+    out = np.zeros(old.shape, bool)
+    if strategy != "dynamic" or not np.any(touched):
+        return out
+    ti, tk = np.nonzero(touched)
+    ay = torch.from_numpy(np.asarray(dens_y, np.float32)[tk, :])  # (t, J)
+
+    def codes(dens: np.ndarray) -> np.ndarray:
+        ax = torch.from_numpy(dens[ti, tk].astype(np.float32))[:, None]
+        return model.select_traced(ax, ay).numpy()
+
+    out[ti, tk] = np.any(codes(old) != codes(new), axis=1)
+    return out
 
 
 def plan_format(strategy: str, dens_x: torch.Tensor, dens_y: torch.Tensor,

@@ -82,7 +82,7 @@ class EngineConfig:
     reference's default.  ``weights``/``cost_model`` hold live objects --
     equality on those falls back to identity.  The reference's ``donate``
     and ``mesh`` are left out: nothing in the port reads them (sharded
-    waves are ``ROADMAP.md`` queue 1 item 7).
+    waves are ``ROADMAP.md`` queue 1 item 4).
 
     * ``f_in`` -- input feature width every admitted request must match.
     * ``model`` -- ``"gcn"`` | ``"sage"`` | ``"gin"`` | ``"sgc"`` |
@@ -149,9 +149,9 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Every knob :class:`ContinuousGraphServer` is built from.  The
-    reference's ``resize``, ``autoscale`` and ``minibatch`` are left out:
-    nothing in the port reads them yet (multi-device lanes and mini-batch
-    serving are ``ROADMAP.md`` queue 1 items 7 and 5).
+    reference's ``resize`` and ``autoscale`` are left out: nothing in the
+    port reads them yet (multi-device lanes are ``ROADMAP.md`` queue 1
+    item 4).
 
     The wave-cutting policy:
 
@@ -188,6 +188,15 @@ class ServeConfig:
       never).
     * ``priority_weight`` -- a priority-``p`` wave's class weight is
       ``priority_weight ** p`` in the weighted-fair launch order.
+
+    The giant-graph front door:
+
+    * ``minibatch`` -- a ``serving.minibatch.MiniBatchPlanner`` enabling
+      ``submit_query(seeds, deadline=)``: one sampled subgraph per seed
+      vertex through the planner, hot seeds answered from its vertex
+      cache, wave results routed back to the waiting queries, and
+      ``apply_delta`` for streaming edge deltas.  ``None`` (default)
+      keeps the whole-graph-only server.
     """
 
     clock: Callable[[], float] = time.monotonic
@@ -202,6 +211,7 @@ class ServeConfig:
     max_pending: Optional[int] = None
     pressure_threshold: float = math.inf
     priority_weight: float = 2.0
+    minibatch: Optional[Any] = None
 
     def validate(self) -> "ServeConfig":
         if not 0.0 < self.ewma_alpha <= 1.0:

@@ -29,9 +29,14 @@ input.  :class:`GraphServeEngine` runs that loop over the fused executor:
   :class:`GraphResult` are what ``serving.scheduler.ContinuousGraphServer``
   reads to serve requests that arrive over time.
 
+* **Mini-batch requests.**  A request may carry a ``fill_features(out)``
+  hook; the slot fill then hands it the slot's (n, f_in) feature view
+  instead of copying ``features`` (``serving.minibatch.SeedRequest``
+  copies the rows it gathered from the feature store at admission).
+
 Not ported yet: the sharded dispatch (``mesh``/``submesh``, slot placement
 over lanes), which comes with sharded waves (``ROADMAP.md`` queue 1 item
-7).
+4).
 """
 from __future__ import annotations
 
@@ -290,12 +295,19 @@ class GraphServeEngine:
         """Normalize-then-fill ONE request into zero-initialized slot
         views (one (bucket, ...) view per graph input).  Normalization
         sees the true graph -- padding vertices stay isolated -- so
-        real-vertex outputs do not depend on the bucket."""
+        real-vertex outputs do not depend on the bucket.  Feature rows
+        come from the request's ``fill_features(view[:n])`` hook when it
+        has one (a mini-batch ``SeedRequest`` copies its gathered rows
+        straight into the slot view) and are a plain copy otherwise."""
         n = req.n_vertices
         adj = None
         for name, view in views.items():
             if name == "H0":
-                view[:n] = np.asarray(req.features, np.float32)
+                fill = getattr(req, "fill_features", None)
+                if fill is not None:
+                    fill(view[:n])
+                else:
+                    view[:n] = np.asarray(req.features, np.float32)
             else:
                 if adj is None:
                     adj = graph_data.normalize_adjacency(req.adjacency)

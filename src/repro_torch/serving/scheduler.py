@@ -53,9 +53,17 @@ arrival order or clock.  The clock is injectable (``clock=``, default
 ``time.monotonic``).  The server runs on whatever device its engine has;
 it reaches the device only through ``begin_wave``/``finish_wave``.
 
-Not ported yet: mini-batch queries and streaming deltas (``submit_query``,
-``apply_delta``; ``ROADMAP.md`` queue 1 item 5) and multi-device lanes
-(``resize``, ``autoscale``, ``plan_groups``, ``plan_lanes``; item 7).
+* **Giant-graph queries.**  With a ``minibatch=`` planner
+  (``serving.minibatch.MiniBatchPlanner``),
+  :meth:`~ContinuousGraphServer.submit_query` takes seed vertices of one
+  host graph: hot seeds are answered from the planner's cache, a seed
+  already in flight is coalesced, the rest are sampled and submitted as
+  requests with negative ids, and ``poll``/``drain`` route their results
+  back to the waiting queries.  :meth:`~ContinuousGraphServer.apply_delta`
+  streams edge deltas into the graph mid-stream.
+
+Not ported yet: multi-device lanes (``resize``, ``autoscale``,
+``plan_groups``, ``plan_lanes``; ``ROADMAP.md`` queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ from repro_torch.core import scheduler as core_scheduler
 from repro_torch.serving.config import UNSET, ServeConfig, merge_config
 from repro_torch.serving.graph_engine import (GraphRequest, GraphResult,
                                               GraphServeEngine)
+from repro_torch.serving.minibatch import DeltaReport, QueryTicket
 
 
 class Ticket(int):
@@ -252,14 +261,16 @@ class ContinuousGraphServer:
                  admit_margin: float = UNSET,
                  max_pending: Optional[int] = UNSET,
                  pressure_threshold: float = UNSET,
-                 priority_weight: float = UNSET):
+                 priority_weight: float = UNSET,
+                 minibatch=UNSET):
         cfg = merge_config(ServeConfig, config, dict(
             clock=clock, ewma_alpha=ewma_alpha,
             cold_start_wall=cold_start_wall, slack_margin=slack_margin,
             batch_patience=batch_patience, max_wait=max_wait,
             n_lanes=n_lanes, shed=shed, admit_margin=admit_margin,
             max_pending=max_pending, pressure_threshold=pressure_threshold,
-            priority_weight=priority_weight)).validate()
+            priority_weight=priority_weight,
+            minibatch=minibatch)).validate()
         self.config = cfg
         self.engine = engine
         self.clock = cfg.clock
@@ -299,6 +310,15 @@ class ContinuousGraphServer:
         self.shed_at_submit = 0
         self.shed_under_pressure = 0
         self.peak_pressure = 0.0
+        # the giant-graph front door: the planner samples one subgraph per
+        # seed vertex, answers hot seeds from its cache, and its negative
+        # request ids map wave results back to the waiting queries
+        # (whole-graph submit() callers keep ids non-negative)
+        self.minibatch = cfg.minibatch
+        self._query_seq = 0
+        self.queries_submitted = 0
+        self._query_waiters: Dict[int, List[QueryTicket]] = {}  # rid -> qts
+        self._inflight_seed: Dict[int, int] = {}    # vertex -> request_id
         # seconds per Analyzer cost unit, from each dispatched wave's cost
         # against its measured wall: admission floors a request's own wave
         # by its predicted cost even while its bucket's EWMA is cold
@@ -376,6 +396,104 @@ class ContinuousGraphServer:
             seq, request, bucket, now, deadline, priority=ticket.priority,
             tenant=ticket.tenant, cost=cost, ticket=ticket))
         return ticket
+
+    def submit_query(self, seeds: Sequence[int],
+                     deadline: Optional[float] = None, *,
+                     priority: int = 0, tenant: str = "default"
+                     ) -> QueryTicket:
+        """Enqueue one mini-batch QUERY -- seed vertices of the planner's
+        host graph -- alongside whole-graph :meth:`submit` traffic.
+
+        Per unique seed vertex: a cache hit answers at once; a vertex
+        already in flight coalesces (one sampled request serves every
+        query waiting on it -- exact, because each vertex's subgraph is
+        sampled under its own derived seed); otherwise the planner samples
+        the vertex's subgraph and the request goes through the admission
+        door (deadline, priority and tenant apply per seed request; a shed
+        seed is listed on ``ticket.shed_seeds`` and its row is NaN).
+        Coalescing is version-checked on both axes of mutation: a query
+        does not join an in-flight request that gathered features before a
+        store update or was sampled before an edge delta, so no result
+        reflects features or topology older than its own submission.
+
+        Returns a :class:`~repro_torch.serving.minibatch.QueryTicket` whose
+        rows fill as :meth:`poll`/:meth:`drain` complete waves.  Needs a
+        ``minibatch=`` planner.
+        """
+        planner = self.minibatch
+        if planner is None:
+            raise ValueError(
+                "submit_query needs a minibatch planner: "
+                "ContinuousGraphServer(engine, "
+                "minibatch=MiniBatchPlanner(graph, store, ...))")
+        qt = QueryTicket(self._query_seq, [int(v) for v in seeds],
+                         deadline=deadline)
+        self._query_seq += 1
+        self.queries_submitted += 1
+        for v in dict.fromkeys(qt.seeds):
+            row = planner.lookup(v)
+            if row is not None:
+                qt.from_cache += 1
+                qt._fill(v, row)
+                continue
+            qt._pending.add(v)
+            rid = self._inflight_seed.get(v)
+            if rid is not None and rid in self._query_waiters:
+                inflight = planner.inflight_request(rid)
+                if (inflight is not None
+                        and inflight.store_version == planner.store.version
+                        and inflight.graph_version == planner.graph_version):
+                    self._query_waiters[rid].append(qt)
+                    continue
+            req = planner.request_for(v)
+            ticket = self.submit(req, deadline, priority=priority,
+                                 tenant=tenant)
+            qt.tickets.append(ticket)
+            if not ticket.admitted:
+                planner.abandon(req)
+                qt.shed_seeds.append(v)
+                qt._fill(v, None)
+                continue
+            self._query_waiters[req.request_id] = [qt]
+            self._inflight_seed[v] = req.request_id
+        return qt
+
+    def apply_delta(self, edge_inserts: Sequence = (),
+                    edge_deletes: Sequence = ()) -> DeltaReport:
+        """Stream an edge delta into the served giant graph: the planner's
+        :meth:`~repro_torch.serving.minibatch.MiniBatchPlanner.apply_delta`,
+        whose :class:`~repro_torch.serving.minibatch.DeltaReport` it
+        returns.  Safe mid-stream: requests in flight were sampled from
+        the old topology and still deliver, but their rows are never
+        cached and later queries never coalesce onto them."""
+        if self.minibatch is None:
+            raise ValueError(
+                "apply_delta needs a minibatch planner: "
+                "ContinuousGraphServer(engine, "
+                "minibatch=MiniBatchPlanner(graph, store, ...))")
+        return self.minibatch.apply_delta(
+            edge_inserts, edge_deletes, strategy=self.engine.strategy,
+            cost_model=self.engine.executor.model)
+
+    def _route(self, results: List[GraphResult]) -> List[GraphResult]:
+        """Split a tick's delivered results: planner-issued seed requests
+        go to their waiting query tickets (filling the vertex cache via
+        ``planner.complete``); everything else streams back to the
+        whole-graph caller unchanged."""
+        if self.minibatch is None or not self._query_waiters:
+            return results
+        out = []
+        for res in results:
+            waiters = self._query_waiters.pop(res.request_id, None)
+            if waiters is None:
+                out.append(res)
+                continue
+            vertex, row = self.minibatch.complete(res)
+            if self._inflight_seed.get(vertex) == res.request_id:
+                del self._inflight_seed[vertex]
+            for qt in waiters:
+                qt._fill(vertex, row, completed_at=res.completed_at)
+        return out
 
     def _stats_for(self, tenant: str, priority: int) -> ClassStats:
         key = (tenant, priority)
@@ -654,20 +772,22 @@ class ContinuousGraphServer:
         """One scheduler tick: read the pressure gauge (keeping its peak
         on ``peak_pressure``) and shed above ``pressure_threshold``, cut
         every ready wave, dispatch them in packed order and return the
-        newly completed results.  ``[]`` when nothing was ready."""
+        newly completed results (a query's seed requests go to its
+        ticket instead).  ``[]`` when nothing was ready."""
         now = self.clock()
         pressure = self.backlog_bound()
         if pressure > self.peak_pressure:
             self.peak_pressure = pressure
         if pressure > self.pressure_threshold:
             self._shed_pressure(now, pressure)
-        return self._dispatch(self._cut_ready(now))
+        return self._route(self._dispatch(self._cut_ready(now)))
 
     def drain(self) -> List[GraphResult]:
         """Force-flush: cut everything still queued (reason ``"drain"``),
         dispatch in packed order and return the results.  The queue is
         empty afterwards."""
-        return self._dispatch(self._cut_ready(self.clock(), drain=True))
+        return self._route(
+            self._dispatch(self._cut_ready(self.clock(), drain=True)))
 
     def _dispatch(self, ready: List[tuple]) -> List[GraphResult]:
         """Dispatch the tick's cut waves over the ``n_lanes`` lanes.

@@ -937,3 +937,80 @@ def test_continuous_two_waves_in_flight_equal_one(cuda, model):
                                   n.logits), n.request_id
     for rid, res in out[1].items():
         assert np.array_equal(out[2][rid].logits, res.logits)
+
+
+def test_minibatch_fill_features_into_a_pinned_slot(cuda):
+    """A wave's pinned slot buffer, filled through ``_fill_slot``: each
+    SeedRequest's gathered rows land in its slot's first rows and every
+    padding row (and the dummy slots) stays zero; the device copy of the
+    stack is the same bits."""
+    from repro_torch.data.sampling import powerlaw_host_graph
+    from repro_torch.serving.graph_engine import GraphServeEngine
+    from repro_torch.serving.minibatch import FeatureStore, MiniBatchPlanner
+    graph = powerlaw_host_graph(2000, avg_degree=8, seed=1)
+    store = FeatureStore(np.random.default_rng(2).standard_normal(
+        (2000, 48)).astype(np.float32) + 0.5)
+    planner = MiniBatchPlanner(graph, store, fanouts=(8, 4))
+    eng = GraphServeEngine("gcn", f_in=48, hidden=16, n_classes=7, slots=4,
+                           device=cuda)
+    reqs = [planner.request_for(v) for v in (3, 17, 999)]
+    bucket = max(eng.bucket_for(r.n_vertices) for r in reqs)
+    host = torch.zeros((4, bucket, 48), pin_memory=True)
+    view = host.numpy()
+    assert host.is_pinned() and view.flags["C_CONTIGUOUS"]
+    for slot, req in enumerate(reqs):
+        eng._fill_slot(req, {"H0": view[slot]})
+    for slot, req in enumerate(reqs):
+        n = req.n_vertices
+        assert np.array_equal(view[slot, :n],
+                              store.gather(req.subgraph.vertices))
+        assert not view[slot, n:].any()
+    assert not view[len(reqs):].any()
+    dev = host.to(cuda, non_blocking=True)
+    assert torch.equal(dev.cpu(), host)
+
+
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_minibatch_stream_equals_its_oracle_on_the_card(cuda, model):
+    """A small mini-batch stream on the card: synchronous serve_queries
+    and the continuous submit_query, with an edge delta and a store update
+    between passes, each bitwise the per-seed run_naive oracle; cache-on
+    equals cache-off."""
+    from repro_torch.data.sampling import powerlaw_host_graph
+    from repro_torch.serving.graph_engine import GraphServeEngine
+    from repro_torch.serving.minibatch import (FeatureStore,
+                                               MiniBatchServeEngine)
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+    graph = powerlaw_host_graph(3000, avg_degree=8, seed=0)
+    feats = np.random.default_rng(3).standard_normal(
+        (3000, 64)).astype(np.float32)
+    eng = GraphServeEngine(model, f_in=64, hidden=16, n_classes=7, slots=8,
+                           device=cuda)
+    on = MiniBatchServeEngine(eng, graph, FeatureStore(feats.copy()))
+    off = MiniBatchServeEngine(eng, graph, FeatureStore(feats.copy()),
+                               cache_capacity=None)
+    queries = [[5, 9], [9, 200, 5], [1234], [5, 5, 77, 2999]]
+    for step in range(3):
+        got_on, got_off = on.serve_queries(queries), off.serve_queries(
+            queries)
+        want = on.oracle_queries(queries)
+        for a, b, w in zip(got_on, got_off, want):
+            assert np.array_equal(a.result(), w)
+            assert np.array_equal(b.result(), w)
+        if step == 0:
+            edge = [(5, next(u for u in range(3000) if u != 5 and u not in
+                             set(on.planner.graph.neighbors(5))))]
+            assert on.apply_delta(edge).graph_version == 1
+            off.apply_delta(edge)
+        if step == 1:
+            for mb in (on, off):
+                rows = mb.planner.sample(9).vertices
+                mb.planner.store.update(
+                    rows, mb.planner.store.gather(rows) * 2.0)
+    assert on.cache.stats.hits > 0
+    srv = ContinuousGraphServer(eng, minibatch=on.planner)
+    tickets = [srv.submit_query(q) for q in queries + [[42, 5]]]
+    srv.drain()
+    assert all(t.done for t in tickets)
+    for t, w in zip(tickets, on.oracle_queries([t.seeds for t in tickets])):
+        assert np.array_equal(t.result(), w)
