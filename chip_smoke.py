@@ -46,6 +46,14 @@ card at the shapes its path gives it, then drives the port's paths:
   sojourns, the EWMA wave-wall estimate against each wave's marginal
   wall, the device's idle share and the host's pinned and resident
   memory;
+* the cost-model simulator (``build_sim``, ``simulate``): all six Table VI
+  graphs at full scale with GCN, GraphSAGE, GIN and SGC, four mappings
+  under the FPGA model and Algorithm 7 under the TPU model, planned on the
+  card and held to the same calls on the CPU (histograms and makespans
+  equal), with the reference's simulator gates and the modeled Alveo U250
+  Table VII row of each pair; the flat COO/CSR formats of CiteSeer's
+  A_mean on the card against the CPU's, ``csr_spmm`` over ``csr_to_ell``
+  against the ELL route, and ``block_tile_density`` through ``tile_nnz``;
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
@@ -808,6 +816,9 @@ def main() -> int:
 
     # ---------------- phase 5e: mini-batch serving -----------------------
     minibatch_phase(torch, np, K, dev, card)
+
+    # ---------------- phase 5f: the cost-model simulator ------------------
+    simulator_phase(torch, np, K, dev, card, A, H0)
 
     # ---------------- phase 6: the per-primitive path (ops.matmul) --------
     K.reset_launch_counts()
@@ -2505,6 +2516,211 @@ def minibatch_phase(torch, np, K, dev, card) -> None:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+
+
+SIM_DATASETS = ("CI", "CO", "PU", "FL", "NE", "RE")
+SIM_MODELS = ("gcn", "sage", "gin", "sgc")
+# (strategy, cost model): the four mappings under the paper's FPGA model,
+# then Algorithm 7 under the TPU model
+SIM_CELLS = (("dynamic", "fpga"), ("s1", "fpga"), ("s2", "fpga"),
+             ("gemm", "fpga"), ("dynamic", "tpu"))
+SIM_TWIN_THREADS = 6  # threads running the CPU twins after the card pass
+SIM_RMAX = 576        # ELL slots of CiteSeer's A_mean, as in phase 2
+
+
+def simulator_phase(torch, np, K, dev, card, A, H0) -> None:
+    """Phase 5f: the cost-model simulator (``build_sim``, ``simulate``)
+    planning on the card.
+
+    (a) every Table VI graph at full scale with GCN, GraphSAGE, GIN and SGC:
+    ``dynamic``, ``s1``, ``s2`` and ``gemm`` under the FPGA model and
+    ``dynamic`` under the TPU model, each held to the same call with
+    ``device="cpu"`` in this process (the CPU twins run in
+    ``SIM_TWIN_THREADS`` threads after the card pass):
+    histograms and every kernel's makespan equal.  The reference's
+    simulator gates: dynamic <= 1.02 x min(s1, s2) for GCN and SAGE on CI,
+    ``s2`` never SKIPs, K2P time linear in the decisions, and the SO-S1
+    trend under weight pruning on PubMed rising.  The modeled figures are
+    the Alveo U250 cost model's latencies, not times of the card.  (b) the
+    flat formats on CiteSeer's A_mean on the card equal the CPU's, their
+    round trips are exact, ``csr_to_ell`` equals ``dense_to_ell`` and
+    ``csr_spmm`` over it equals the ELL route bitwise.  (c)
+    ``block_tile_density`` through ``tile_nnz`` equals the CPU's."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch import hw
+    from repro_torch.core import analyzer, formats, profiler, runtime
+    from repro_torch.core.perf_model import FPGACostModel, TPUCostModel
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+    t_phase = time.perf_counter()
+    freq = hw.ALVEO_U250.freq_hz
+    cost = {"fpga": FPGACostModel(), "tpu": TPUCostModel()}
+    fpga_ms = lambda rep: rep.total_seconds(freq) * 1e3     # noqa: E731
+
+    def plan_on_card(sim):
+        """The dynamic FPGA plan of every kernel, densities uploaded and
+        codes left on the card (what ``simulate`` runs there)."""
+        for k in sim.compiled.graph.topo_order():
+            dx, dy = runtime._operand_block_densities(k, sim.stats)
+            analyzer.plan_codes(
+                "dynamic",
+                torch.from_numpy(np.asarray(dx, np.float32)).to(dev),
+                torch.from_numpy(np.asarray(dy, np.float32)).to(dev),
+                cost["fpga"], kernel_type=k.kernel_type, source_order=True)
+
+    # (a) the card pass, timed per call, then the CPU twins
+    K.reset_launch_counts()
+    sims, card_reps, walls, builds, plan_ms = {}, {}, {}, {}, {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for ds in SIM_DATASETS:
+        for model in SIM_MODELS:
+            key = (ds, model)
+            t = time.perf_counter()
+            sims[key] = sim = gnn.build_sim(model, ds, device=dev)
+            builds[key] = time.perf_counter() - t
+            reps, ws = [], []
+            for strategy, m in SIM_CELLS:
+                t = time.perf_counter()
+                reps.append(sim.simulate(strategy, model=cost[m]))
+                ws.append((time.perf_counter() - t) * 1e3)
+            card_reps[key], walls[key] = reps, ws
+            torch.cuda.synchronize()
+            start.record()
+            plan_on_card(sim)
+            end.record()
+            torch.cuda.synchronize()
+            plan_ms[key] = start.elapsed_time(end)
+    card_s = time.perf_counter() - t_phase
+    sim_counts = K.launch_counts()
+    check(not any(sim_counts.values()),
+          f"the simulator launched a kernel of the port: {sim_counts}")
+    # the planning's device time on the pair with the most decisions,
+    # while this thread has the host to itself
+    biggest = max(sims, key=lambda k: int(card_reps[k][0].histogram.sum()))
+    prof = profile_device(torch, lambda: plan_on_card(sims[biggest]), n=3)
+    t = time.perf_counter()
+    so_pruned = []
+    for dens in (1.0, 0.3, 0.05):
+        sim = gnn.build_sim("gcn", "PU", weight_density=dens, device=dev)
+        so_pruned.append(sim.simulate("s1").total_cycles
+                         / sim.simulate("dynamic").total_cycles)
+    check(so_pruned[0] < so_pruned[1] < so_pruned[2],
+          f"SO-S1 under pruning on PU does not rise: {so_pruned}")
+    pruning_s = time.perf_counter() - t
+
+    # the CPU twins and the CPU references of (b) and (c) run in threads
+    # while this thread drives (b) and (c) on the card, in a launch window
+    # of their own (the CPU threads launch nothing)
+    t = time.perf_counter()
+    A_cpu = A.cpu()
+    tile_block = ((128, 128), (16, 16))
+    with ThreadPoolExecutor(max_workers=SIM_TWIN_THREADS) as ex:
+        twins = {key: [ex.submit(runtime.simulate_inference, sim.compiled,
+                                 sim.stats, strategy=s, model=cost[m],
+                                 device="cpu") for s, m in SIM_CELLS]
+                 for key, sim in sims.items()}
+        refs = ex.submit(lambda: (
+            formats.dense_to_coo(A_cpu), formats.dense_to_csr(A_cpu),
+            profiler.block_tile_density(A_cpu, *tile_block)))
+        K.reset_launch_counts()
+        coo, csr = formats.dense_to_coo(A), formats.dense_to_csr(A)
+        trips = (formats.coo_to_dense(coo), formats.csr_to_dense(csr))
+        via = formats.csr_to_ell(csr, SIM_RMAX)
+        direct = formats.dense_to_ell(A, SIM_RMAX)
+        got = K.csr_spmm.csr_spmm(via.values, via.cols, via.row_counts, H0)
+        want = ops.csr_spmm(A, H0, rmax=SIM_RMAX)
+        btd = profiler.block_tile_density(A, *tile_block)
+        torch.cuda.synchronize()
+        fmt_counts = K.launch_counts()
+        coo_h, csr_h, btd_cpu = refs.result()
+        cpu_reps = {key: [f.result() for f in fs]
+                    for key, fs in twins.items()}
+    overlap_s = time.perf_counter() - t
+
+    decisions = 0
+    for key, reps in card_reps.items():
+        for (strategy, m), got_r, want_r in zip(SIM_CELLS, reps,
+                                                cpu_reps[key]):
+            what = f"simulate {key} {strategy}/{m}"
+            check([k.name for k in got_r.kernels]
+                  == [k.name for k in want_r.kernels], what)
+            for gk, wk in zip(got_r.kernels, want_r.kernels):
+                check(np.array_equal(gk.histogram, wk.histogram)
+                      and gk.makespan_cycles == wk.makespan_cycles,
+                      f"{what} {gk.name}: card {gk.histogram.tolist()} "
+                      f"{gk.makespan_cycles} != cpu {wk.histogram.tolist()} "
+                      f"{wk.makespan_cycles}")
+                decisions += int(gk.histogram.sum())
+            if strategy == "s2":
+                check(got_r.histogram[0] == 0, f"{what}: s2 skipped")
+            ratios = [k.k2p_seconds / int(k.histogram.sum())
+                      for k in got_r.kernels]
+            check(max(ratios) - min(ratios) < 1e-12,
+                  f"{what}: K2P time not linear in the decisions")
+    for model in ("gcn", "sage"):
+        lat = {s: r.total_cycles for (s, m), r
+               in zip(SIM_CELLS, card_reps[("CI", model)]) if m == "fpga"}
+        check(lat["dynamic"] <= min(lat["s1"], lat["s2"]) * 1.02,
+              f"dynamic does not dominate the static mappings on CI/{model}")
+    so1, so2 = [], []
+    for key, reps in card_reps.items():
+        ms = {s: fpga_ms(r) for (s, m), r in zip(SIM_CELLS, reps)
+              if m == "fpga"}
+        so1.append(ms["s1"] / ms["dynamic"])
+        so2.append(ms["s2"] / ms["dynamic"])
+        record("simulator_pair", dataset=key[0], model=key[1], card=card,
+               modeled_u250_ms=ms, so_s1=so1[-1], so_s2=so2[-1],
+               tpu_model_dynamic_s=reps[-1].total_cycles,
+               histograms={f"{s}/{m}": r.histogram.tolist()
+                           for (s, m), r in zip(SIM_CELLS, reps)},
+               host_wall_ms={f"{s}/{m}": w
+                             for (s, m), w in zip(SIM_CELLS, walls[key])},
+               build_s=builds[key], plan_event_ms=plan_ms[key])
+    record("simulator_table7", card=card, pairs=len(card_reps),
+           cells=len(SIM_CELLS), decisions=decisions,
+           geomean_so_s1=float(np.exp(np.mean(np.log(so1)))),
+           geomean_so_s2=float(np.exp(np.mean(np.log(so2)))),
+           so_s1_pruned_pu_gcn=so_pruned,
+           host_wall_ms_total=sum(sum(w) for w in walls.values()),
+           plan_event_ms_total=sum(plan_ms.values()),
+           plan_profile={"pair": list(biggest), **prof},
+           card_pass_s=card_s, pruning_s=pruning_s,
+           twins_and_formats_s=overlap_s, cpu_twin_threads=SIM_TWIN_THREADS,
+           note="modeled_u250_ms are Alveo U250 cost-model latencies "
+                "(Table IV model, 250 MHz), not times of the card")
+
+    # (b), (c): the card's formats against the CPU's
+    for name, got_f, want_f in (
+            [(f"coo.{f}", getattr(coo, f), getattr(coo_h, f))
+             for f in ("rows", "cols", "values", "nnz")]
+            + [(f"csr.{f}", getattr(csr, f), getattr(csr_h, f))
+               for f in ("indptr", "indices", "values")]
+            + [("coo_to_dense", trips[0], A_cpu),
+               ("csr_to_dense", trips[1], A_cpu),
+               ("block_tile_density", btd, btd_cpu)]):
+        check(got_f.dtype == want_f.dtype
+              and torch.equal(got_f.cpu(), want_f),
+              f"{name}: the card's differs from the CPU's")
+    for f in ("values", "cols", "row_counts"):
+        check(torch.equal(getattr(via, f), getattr(direct, f)),
+              f"csr_to_ell {f} != dense_to_ell's")
+    check(torch.equal(got, want),
+          "csr_spmm over csr_to_ell != the ELL route, bitwise")
+    check(fmt_counts["csr_spmm"] >= 2 and fmt_counts["tile_nnz"] >= 1,
+          f"phase 5f formats launched {fmt_counts}")
+    record("simulator_formats", card=card, shape=list(A.shape),
+           nnz=int(coo.nnz), capacity=coo.capacity, rmax=SIM_RMAX,
+           coo_csr_equal_cpu=True, round_trips_exact=True,
+           csr_to_ell_equals_dense_to_ell=True,
+           csr_spmm_equals_ell_route=True,
+           block_tile_density_shape=list(btd.shape),
+           block_tile_density_mean=float(btd_cpu.mean()),
+           block_tile_density_equal_cpu=True, launches=fmt_counts)
+    del coo, coo_h, csr, csr_h, trips, via, direct, got, want, A_cpu
+    torch.cuda.empty_cache()
+    record("simulator_phase", card=card,
+           seconds=time.perf_counter() - t_phase)
 
 
 LM_ARCH = "llama3.2-1b"

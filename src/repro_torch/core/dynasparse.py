@@ -198,6 +198,15 @@ def dynasparse_matmul(
                             out_counts, executed_fmt)
 
 
+def dynasparse_dense_equivalent(x: torch.Tensor, y: torch.Tensor
+                                ) -> torch.Tensor:
+    """Oracle: the dispatch NEVER changes the value, only the cost.  A
+    plain float32 product (``torch.matmul``, so TF32 only if the caller
+    switched it on), cast to the operands' promoted dtype."""
+    return torch.matmul(x.float(), y.float()).to(
+        torch.promote_types(x.dtype, y.dtype))
+
+
 def attention_adjacency(
     a: torch.Tensor,
     z: torch.Tensor,

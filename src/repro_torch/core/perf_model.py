@@ -13,15 +13,18 @@ formulas, so the planner makes the same decisions as the reference:
 order, or torch tensors; ``select`` is the host decision for one pair of
 Python floats; ``select_traced`` and ``select_format_traced`` take float32
 tensors on any device and keep the reference's compiled float32 operation
-order.  A divisor that is a Python number is first made a tensor
-on the operand's device: CUDA's true division by a host scalar multiplies
-by its reciprocal, which rounds differently and would move decisions that
+order, or with ``source_order=True`` the order as written, which is how
+the reference's cost simulator runs its planner (op by op, uncompiled).
+A divisor that is a Python number is first made a tensor on the
+operand's device: CUDA's true division by a host scalar multiplies by
+its reciprocal, which rounds differently and would move decisions that
 sit on a threshold.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import operator
 from typing import Optional, Union
 
 import numpy as np
@@ -119,9 +122,11 @@ class FPGACostModel:
             return Primitive.SPDMM
         return Primitive.SPMM
 
-    def select_traced(self, a_x: torch.Tensor, a_y: torch.Tensor
-                      ) -> torch.Tensor:
-        """Vectorized Algorithm 7 on tensors: int32 Primitive codes."""
+    def select_traced(self, a_x: torch.Tensor, a_y: torch.Tensor, *,
+                      source_order: bool = False) -> torch.Tensor:
+        """Vectorized Algorithm 7 on tensors: int32 Primitive codes.
+        ``source_order`` is accepted for :class:`TPUCostModel`'s sake:
+        these threshold comparisons have one order."""
         a_min = torch.minimum(a_x, a_y)
         a_max = torch.maximum(a_x, a_y)
         spdmm = torch.full_like(a_min, int(Primitive.SPDMM), dtype=torch.int32)
@@ -163,15 +168,16 @@ class TPUCostModel:
         bytes_moved = (m * n + n * d + m * d) * self.dtype_bytes
         return self._roofline_seconds(flops, bytes_moved, self.eff_gemm)
 
-    def spdmm_seconds(self, m, n, d, b_x, b_y) -> ArrayLike:
+    def spdmm_seconds(self, m, n, d, b_x, b_y, *,
+                      source_order: bool = False) -> ArrayLike:
         b_min = _minimum(b_x, b_y)
         flops = 2.0 * b_min * m * n * d
-        if _is_t(b_x, b_y):
+        if _is_t(b_x, b_y) and not source_order:
             # the two constant terms are summed first: XLA folds
             # (x + n*d) + m*d into x + (n*d + m*d) in the reference's
             # compiled planner, and the two orders round differently
             bytes_moved = (b_min * m * n + (n * d + m * d)) * self.dtype_bytes
-        else:                       # the reference's host order
+        else:                       # the order as written
             bytes_moved = (b_min * m * n + n * d + m * d) * self.dtype_bytes
         return self._roofline_seconds(flops, bytes_moved, self.eff_spdmm)
 
@@ -208,10 +214,14 @@ class TPUCostModel:
         return min(costs, key=costs.get)
 
     def select_traced(self, b_x: torch.Tensor, b_y: torch.Tensor,
-                      m=128, n=128, d=128) -> torch.Tensor:
+                      m=128, n=128, d=128, *, source_order: bool = False
+                      ) -> torch.Tensor:
         """First-minimum argmin over (GEMM, SpDMM, SPMM), written as strict
         ``<`` comparisons so ties resolve to the earlier primitive on every
-        device."""
+        device.  ``source_order`` sums SpDMM's bytes as written (see
+        ``spdmm_seconds``): where one operand is dense, SpDMM and SPMM cost
+        the same in exact arithmetic, and only the rounding of that sum
+        breaks the tie."""
         shape = torch.broadcast_shapes(b_x.shape, b_y.shape)
         # the GEMM cost is a host float64 number rounded once to float32,
         # as the reference's broadcast of it is
@@ -220,7 +230,8 @@ class TPUCostModel:
         best = torch.full(shape, int(Primitive.GEMM), dtype=torch.int32,
                           device=b_x.device)
         for prim, cost in ((Primitive.SPDMM,
-                            self.spdmm_seconds(m, n, d, b_x, b_y)),
+                            self.spdmm_seconds(m, n, d, b_x, b_y,
+                                               source_order=source_order)),
                            (Primitive.SPMM,
                             self.spmm_seconds(m, n, d, b_x, b_y))):
             cost = torch.broadcast_to(cost, shape)
@@ -293,3 +304,32 @@ class CostCalibration:
         if self.seconds_per_unit is None:
             return fallback
         return float(cost_units) * self.seconds_per_unit
+
+
+def predict_output_density(a_x: ArrayLike, a_y: ArrayLike, n: ArrayLike
+                           ) -> ArrayLike:
+    """Expected density of Z = X @ Y under independent Bernoulli nonzeros.
+
+    P(z_ij != 0) = 1 - (1 - a_x * a_y)^n.  Host values (numbers, numpy)
+    take the reference's numpy form; tensors stay on their device, and a
+    Python integer ``n`` is raised by binary exponentiation, the reference's
+    integer power, so float32 results are bitwise its own (``torch.pow``
+    rounds differently and the subtraction from 1 magnifies it).
+    """
+    one = 1.0
+    if not _is_t(a_x, a_y, n):
+        return one - np.power(one - np.asarray(a_x) * np.asarray(a_y), n)
+    stay = one - a_x * a_y
+    try:
+        e = operator.index(n)
+    except TypeError:
+        return one - stay ** n
+    acc = torch.ones_like(stay) if e == 0 else None
+    left = abs(e)
+    while left:
+        if left & 1:
+            acc = stay if acc is None else acc * stay
+        left >>= 1
+        if left:
+            stay = stay * stay
+    return one - (1.0 / acc if e < 0 else acc)

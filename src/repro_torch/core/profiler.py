@@ -58,6 +58,40 @@ def block_density(x: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:
     return density_from_counts(block_counts(x, block), m, n, *block)
 
 
+def tile_occupancy(x: torch.Tensor, tile: Tuple[int, int]) -> torch.Tensor:
+    """Per-tile occupancy: (M, N) -> (Mt, Nt) float32 0/1, 1 where the tile
+    holds a nonzero.  (``kernels.dispatch.tile_occupancy`` is another
+    function: the dispatch kernel's uint8 occupancy of 16x16 tiles.)"""
+    return (block_counts(x, tile) > 0).to(torch.float32)
+
+
+def block_tile_density(x: torch.Tensor, block: Tuple[int, int],
+                       tile: Tuple[int, int]) -> torch.Tensor:
+    """Fraction of nonzero (tile x tile) sub-tiles inside each block: the
+    beta the TPU cost model plans from.  Counted through ``tile_nnz`` on a
+    CUDA tensor."""
+    occ = tile_occupancy(x, tile)                        # (Mt, Nt) 0/1
+    bm, bn = block[0] // tile[0], block[1] // tile[1]
+    return block_density_from_mask(occ, (bm, bn))
+
+
+def block_density_from_mask(mask: torch.Tensor, block: Tuple[int, int]
+                            ) -> torch.Tensor:
+    """Mean of a float32 0/1 mask over each (bm, bn) block, zero-padded at
+    ragged edges.  The sum of the block is exact; it is then multiplied by
+    the float32 reciprocal of ``bm * bn``, which is how the reference's
+    compiled mean divides (a true division rounds differently when
+    ``bm * bn`` is not a power of two)."""
+    m, n = mask.shape
+    bm, bn = block
+    pm, pn = (-m) % bm, (-n) % bn
+    if pm or pn:
+        mask = F.pad(mask, (0, pn, 0, pm))
+    mb, nb = mask.shape[0] // bm, mask.shape[1] // bn
+    total = mask.reshape(mb, bm, nb, bn).sum(dim=(1, 3))
+    return total * float(np.float32(1.0) / np.float32(bm * bn))
+
+
 @dataclasses.dataclass
 class BlockProfile:
     """A propagated block-sparsity profile (counts, not densities).
@@ -120,3 +154,12 @@ class SparsityStats:
         bd = block_density(t, block).cpu().numpy()
         return cls(shape=tuple(t.shape), block=tuple(block),
                    density=float(element_density(t)), block_densities=bd)
+
+    @classmethod
+    def from_predicted(cls, shape, block, block_densities
+                       ) -> "SparsityStats":
+        """Stats from predicted (host numpy) block densities: the cost
+        simulator's generated and propagated statistics."""
+        bd = np.asarray(block_densities)
+        return cls(shape=tuple(shape), block=tuple(block),
+                   density=float(bd.mean()), block_densities=bd)

@@ -21,8 +21,16 @@ plans from.
 serves a wave of stacked requests on one device: the shared weights are
 profiled once per tensor identity, the requests' inputs in one batched
 ``tile_nnz`` launch per (input, granularity), and each slot walks the same
-fused kernel walk, planning from its own profile.  Sharded dispatch and
-the cost-model simulator are not ported yet.
+fused kernel walk, planning from its own profile.  Sharded dispatch is
+not ported yet.
+
+:func:`simulate_inference` is the pure cost-model execution (no numerics):
+from per-tensor density statistics it predicts a strategy's latency on the
+paper's FPGA (or under the TPU model).  Densities of the intermediates are
+propagated in float64 numpy (:func:`propagate_stats`), each kernel is
+planned on the device (``analyzer.plan_kernel_host``) and costed and
+scheduled on the host.  This is how the paper-table results evaluate
+graphs whose dense operands would not fit (NELL, Reddit).
 """
 from __future__ import annotations
 
@@ -39,8 +47,10 @@ from repro_torch.core.compiler import CompiledModel
 from repro_torch.core.dynasparse import (DynasparseResult,
                                          attention_adjacency,
                                          dynasparse_matmul, mask_ell)
-from repro_torch.core.ir import AggOp, KernelIR, KernelType
+from repro_torch.core.ir import Activation, AggOp, KernelIR, KernelType
 from repro_torch.core.perf_model import FPGACostModel
+from repro_torch.core.profiler import SparsityStats
+from repro_torch.device import DeviceLike, resolve
 
 # instructions the soft processor spends per K2P decision (Alg. 7 is a few
 # compares + buffer assignment); 500 MIPS MicroBlaze (Section VII).
@@ -139,6 +149,126 @@ class PendingWave:
 
 def _k2p_model_seconds(num_decisions: int) -> float:
     return num_decisions * _K2P_INSTRUCTIONS / _SOFT_PROC_IPS
+
+
+# ---------------------------------------------------------------------------
+# Pure cost-model simulation (paper-table results; no numerics).
+# ---------------------------------------------------------------------------
+
+def propagate_stats(compiled: CompiledModel,
+                    static_stats: Dict[str, SparsityStats], *,
+                    relu_keep: float = 0.5) -> Dict[str, SparsityStats]:
+    """Forward pass in DENSITY space over the IR, in float64 numpy.
+
+    Intermediate feature densities are predicted per block with the
+    independent-Bernoulli model (``perf_model.predict_output_density``, in
+    log space); ReLU keeps ``relu_keep`` of nonzeros.  This stays on the
+    host in the reference's operation order: a density one ulp off can
+    move a code across a threshold.
+    """
+    env = dict(static_stats)
+    for k in compiled.graph.topo_order():
+        if k.kernel_type == KernelType.ATTENTION:
+            raise NotImplementedError(
+                "attention kernels have no density-space model (their "
+                "operand density is input-dependent by construction); GAT "
+                "runs only through the real-numerics engines")
+        dx, dy = _operand_block_densities(k, env)
+        _, bk, _ = k.block_dims
+        # out block (i, j): 1 - prod_k (1 - dx[i,k] dy[k,j])^bk
+        log_stay = np.zeros((dx.shape[0], dy.shape[1]))
+        for kk in range(dx.shape[1]):
+            p = np.clip(np.outer(dx[:, kk], dy[kk, :]), 0.0, 1.0 - 1e-12)
+            log_stay += bk * np.log1p(-p)
+        dens = 1.0 - np.exp(log_stay)
+        if k.kernel_type == KernelType.AGGREGATE:
+            # stats convention: features live at (N2, N2) granularity; the
+            # Aggregate result is uniform within its N1 row panel -> expand.
+            dens = np.repeat(dens, max(k.scheme.n1 // k.scheme.n2, 1), axis=0)
+            m = k.matmul_dims[0]
+            dens = dens[: -(-m // k.scheme.n2)]
+        if k.epilogue_add is not None and k.epilogue_add in env:
+            other = env[k.epilogue_add].block_densities
+            dens = 1.0 - (1.0 - dens) * (1.0 - other)
+        if k.activation_enabled and k.activation == Activation.RELU:
+            dens = dens * relu_keep
+        m, _, d = k.matmul_dims
+        env[k.out] = SparsityStats.from_predicted(
+            (m, d), (k.scheme.n2, k.scheme.n2), dens)
+    return env
+
+
+def _pool_rows(bd: np.ndarray, r: int) -> np.ndarray:
+    """Mean-pool row-blocks r at a time (exact for element densities)."""
+    if r <= 1:
+        return bd
+    rows = bd.shape[0]
+    pad = (-rows) % r
+    if pad:
+        bd = np.concatenate([bd, np.zeros((pad, bd.shape[1]))], axis=0)
+        w = np.concatenate([np.ones((rows, 1)), np.zeros((pad, 1))])
+    else:
+        w = np.ones((bd.shape[0], 1))
+    num = (bd * w).reshape(-1, r, bd.shape[1]).sum(axis=1)
+    den = w.reshape(-1, r, 1).sum(axis=1)
+    return num / np.maximum(den, 1)
+
+
+def _operand_block_densities(k: KernelIR, env: Dict[str, SparsityStats]
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """(I, K) lhs / (K, J) rhs block-density grids at the kernel's dims.
+
+    Feature-matrix stats are stored at (N2, N2); an Aggregate kernel
+    consumes its rhs at (N1, N2) fiber granularity, so row-blocks are
+    mean-pooled.
+    """
+    sx, sy = env[k.lhs], env[k.rhs]
+    dx, dy = sx.block_densities, sy.block_densities
+    if k.kernel_type == KernelType.AGGREGATE:
+        dy = _pool_rows(dy, max(k.scheme.n1 // k.scheme.n2, 1))
+    return dx, dy
+
+
+def simulate_inference(compiled: CompiledModel,
+                       stats_env: Dict[str, SparsityStats], *,
+                       strategy: str = "dynamic",
+                       model: Optional[FPGACostModel] = None,
+                       n_cc: Optional[int] = None,
+                       device: DeviceLike = None) -> InferenceReport:
+    """Predicted latency of a full GNN inference under a mapping strategy.
+
+    Pure cost-model execution: ``stats_env`` maps every tensor the IR
+    references to its :class:`SparsityStats` (adjacency at (N1, N1),
+    features and weights at (N2, N2); :func:`propagate_stats` predicts the
+    intermediates).  Per kernel: K2P planning on ``device`` (the GPU unless
+    the caller asks for the CPU) through ``analyzer.plan_kernel_host``,
+    Alg. 8 dynamic scheduling over ``n_cc`` cores and the Table IV cost
+    under ``model`` (``FPGACostModel`` for the paper's numbers, or
+    ``TPUCostModel``), all bookkeeping in float64 numpy.
+    """
+    dev = resolve(device)
+    model = model or FPGACostModel()
+    n_cc = n_cc or compiled.partition.n_cc
+    reports = []
+    for k in compiled.graph.topo_order():
+        if k.kernel_type == KernelType.ATTENTION:
+            raise NotImplementedError(
+                "attention kernels have no density-space cost model; GAT "
+                "runs only through the real-numerics engines")
+        dx, dy = _operand_block_densities(k, stats_env)
+        codes, costs = analyzer.plan_kernel_host(
+            strategy, dx, dy, k.block_dims, model,
+            kernel_type=k.kernel_type, device=dev)
+        sched = scheduler.schedule_dynamic(costs.reshape(-1), n_cc)
+        # the codes' histogram: four counting passes, about twice as fast
+        # as np.bincount's widening copy on these grids
+        hist = np.array([np.count_nonzero(codes == p) for p in range(4)],
+                        np.int64)
+        reports.append(KernelReport(
+            name=k.name, num_tasks=int(costs.size), histogram=hist,
+            makespan_cycles=sched.makespan, utilization=sched.utilization,
+            k2p_seconds=_k2p_model_seconds(codes.size)))
+    return InferenceReport(reports, strategy)
 
 
 def _sync(t: torch.Tensor) -> None:

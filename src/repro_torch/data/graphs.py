@@ -7,11 +7,18 @@ Degree distributions are power-law with a locality boost (real graphs have
 block-diagonal mass after community ordering -- what makes per-PARTITION
 density vary, the property Dynasparse exploits).
 
-:func:`materialize` builds dense graphs (optionally scaled down) for the
-real-numerics engines.  This module is numpy only and draws from the same
-seeded generators as ``repro.data.graphs``, so both packages materialize
-bitwise-identical graphs.  The block-statistics generators of the cost
-simulator are not part of this package yet.
+Two granularities:
+
+* :func:`block_stats` / :func:`weight_stats` -- block-level density grids
+  generated directly (a multinomial over block probabilities), never
+  materializing |V|^2 anything.  They feed the cost-model simulator
+  (``core.runtime.simulate_inference``) at full Table VI scale.
+* :func:`materialize` -- dense graphs (optionally scaled down) for the
+  real-numerics engines.
+
+This module is numpy only and draws from the same seeded generators, in
+the same order, as ``repro.data.graphs``, so both packages generate
+bitwise-identical statistics and graphs.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.profiler import SparsityStats
 
 def _name_seed(name: str, seed: int) -> int:
     """Process-stable per-dataset seed (``hash(str)`` is salted per run)."""
@@ -64,6 +72,69 @@ def powerlaw_marginal(n: int, rng: np.random.Generator,
 _powerlaw_marginal = powerlaw_marginal       # internal callers' name
 
 
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def block_stats(name: str, n1: int, n2: int, *, seed: int = 0,
+                locality: float = 4.0) -> Dict[str, SparsityStats]:
+    """Density statistics for A (at N1xN1) and H0 (at N2xN2).
+
+    The adjacency block-count matrix is a multinomial over block
+    probabilities p_ij ~ r_i * c_j * (1 + locality * 1[i==j]) with power-law
+    marginals; H0 density is column-skewed lognormal around the Table VI
+    mean (real feature matrices have hot/cold feature columns).
+    """
+    spec = TABLE_VI[name]
+    rng = np.random.default_rng(_name_seed(name, seed))
+    gb = _ceil_div(spec.n_vertices, n1)
+    r = _powerlaw_marginal(gb, rng)
+    c = _powerlaw_marginal(gb, rng)
+    p = np.outer(r, c)
+    p[np.diag_indices(gb)] *= (1.0 + locality)
+    p /= p.sum()
+    # expected edge count per block; Poisson-dispersed for realism
+    lam = spec.n_edges * p
+    counts = rng.poisson(lam).astype(np.float64)
+    # self-loops (A-hat = A + I) make diagonal blocks nonzero
+    counts[np.diag_indices(gb)] += n1
+    sizes = _block_sizes(spec.n_vertices, n1)
+    area = np.outer(sizes, sizes)
+    dens_a = np.minimum(counts / np.maximum(area, 1), 1.0)
+    a_stats = SparsityStats.from_predicted(
+        (spec.n_vertices, spec.n_vertices), (n1, n1), dens_a)
+
+    fb = _ceil_div(spec.f_in, n2)
+    vb = _ceil_div(spec.n_vertices, n2)
+    col_skew = _cold_column_skew(fb, rng, spec.density_h0)
+    dens_h = np.clip(spec.density_h0 * np.outer(np.ones(vb), col_skew), 0, 1)
+    h_stats = SparsityStats.from_predicted(
+        (spec.n_vertices, spec.f_in), (n2, n2), dens_h)
+    return {"A": a_stats, "A_mean": a_stats, "H0": h_stats}
+
+
+def weight_stats(dims, n2: int, density: float = 1.0, *, seed: int = 0,
+                 names=None) -> Dict[str, SparsityStats]:
+    """Stats for (optionally pruned) weight matrices at N2xN2 blocks.
+
+    Magnitude pruning leaves roughly uniform per-block density; a mild skew
+    models structured pruning artifacts.  Every call draws from a fresh
+    ``default_rng(seed)``.
+    """
+    rng = np.random.default_rng(seed)
+    out = {}
+    names = names or [f"W{l}" for l in range(1, len(dims))]
+    for l, wname in enumerate(names, start=1):
+        fi, fo = dims[l - 1], dims[l]
+        gb_i, gb_o = _ceil_div(fi, n2), _ceil_div(fo, n2)
+        skew = rng.lognormal(0.0, 0.25, size=(gb_i, gb_o))
+        skew /= skew.mean()
+        dens = np.clip(density * skew, 0, 1) if density < 1.0 else np.ones(
+            (gb_i, gb_o))
+        out[wname] = SparsityStats.from_predicted((fi, fo), (n2, n2), dens)
+    return out
+
+
 def _cold_column_skew(n: int, rng: np.random.Generator,
                       density: float) -> np.ndarray:
     """Hot/cold feature-column profile with mean 1.
@@ -78,6 +149,14 @@ def _cold_column_skew(n: int, rng: np.random.Generator,
     skew[dead] = 0.0
     mean = skew.mean()
     return skew / mean if mean > 0 else np.ones(n)
+
+
+def _block_sizes(n: int, b: int) -> np.ndarray:
+    gb = _ceil_div(n, b)
+    sizes = np.full(gb, b)
+    if n % b:
+        sizes[-1] = n % b
+    return sizes
 
 
 def normalize_adjacency(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

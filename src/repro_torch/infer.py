@@ -5,7 +5,11 @@ Materializes a (scaled) Table VI graph, compiles the model, runs real
 numerics through the per-kernel engine under every mapping strategy and
 through the fused whole-model executor, and prints per-strategy primitive
 histograms, modeled FPGA latency, walls, executor-cache hits, the
-cross-strategy ``max|err|`` and whether fused == per-kernel bitwise.
+cross-strategy ``max|err|`` and whether fused == per-kernel bitwise, then
+the full-scale Table VII row of the cost-model simulator (``build_sim``):
+the dynamic mapping's modeled Alveo U250 latency and its speedups over
+the static S1 and S2 mappings.  Those are the FPGA cost model's figures,
+not times of the device the program runs on.
 
     PYTHONPATH=src python -m repro_torch.infer --model sage --ds CI --scale 1.0
 
@@ -68,6 +72,20 @@ def main(argv=None) -> None:
           f"k2p-overlapped={rep.k2p_exposed_seconds(freq) * 1e6:.1f}us "
           f"(serial {rep.k2p_seconds * 1e6:.1f}us) "
           f"traces={fused.trace_count} bitwise==per-kernel: {same}")
+
+    if args.model == "gat":
+        print("\n(no full-scale Table VII row for GAT: its attention "
+              "sparsity depends on the input, so the cost-model simulator "
+              "has no density to propagate)")
+        return
+    print("\n== full-scale Table VII row (cost-model simulation, modeled "
+          "Alveo U250 latency, not a time of this device) ==")
+    sim = gnn.build_sim(args.model, args.ds, device=args.device)
+    lat = {s: sim.simulate(s).total_seconds(freq) * 1e3
+           for s in ("dynamic", "s1", "s2")}
+    print(f"dynamic={lat['dynamic']:.4f}ms  "
+          f"SO-S1={lat['s1'] / lat['dynamic']:.2f}x  "
+          f"SO-S2={lat['s2'] / lat['dynamic']:.2f}x")
 
 
 if __name__ == "__main__":

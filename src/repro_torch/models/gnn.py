@@ -5,8 +5,9 @@ Port of ``repro.models.gnn``: the model IS its IR (``core.compiler``);
 this module wires weights and datasets into an engine-ready bundle.
 Weights, GAT's per-head attention vectors included, are drawn with numpy
 from the same seed and in the same order as the reference, so
-:func:`init_weights` is bitwise the reference's.  The cost-model bundle
-(``build_sim``) is not ported yet.
+:func:`init_weights` is bitwise the reference's.  :func:`build_sim` is
+the cost-model bundle at full Table VI scale: block statistics generated
+on the host, planned on the device by ``SimGNN.simulate``.
 """
 from __future__ import annotations
 
@@ -130,3 +131,55 @@ def build_dense(model: str, dataset: str, *, scale: float = 0.25,
         cm.static_stats[name] = SparsityStats.measure(
             w, (cm.partition.n2, cm.partition.n2))
     return DenseGNN(cm, tensors, g)
+
+
+@dataclasses.dataclass
+class SimGNN:
+    """Cost-model bundle at full Table VI scale (no numerics).  ``device``
+    is where ``simulate`` plans (resolved by :func:`build_sim`)."""
+
+    compiled: CompiledModel
+    stats: Dict[str, SparsityStats]
+    device: DeviceLike = None
+
+    def simulate(self, strategy: str, model=None, n_cc: Optional[int] = None
+                 ) -> runtime.InferenceReport:
+        return runtime.simulate_inference(self.compiled, self.stats,
+                                          strategy=strategy, model=model,
+                                          n_cc=n_cc, device=self.device)
+
+
+def build_sim(model: str, dataset: str, *, n_cc: int = 7,
+              weight_density: float = 1.0, seed: int = 0,
+              relu_keep: float = 0.5, align: int = 16,
+              on_chip_bytes: int = 6 * 1024 * 1024,
+              device: DeviceLike = None) -> SimGNN:
+    """Full-scale bundle: Alg. 9 partitioning + synthetic block stats +
+    density propagation for the runtime-only intermediate features.
+
+    Defaults model the paper's FPGA: partitions align to p_sys=16 and the
+    per-core buffer budget is ~45MB/7 cores.  The bundle plans on
+    ``device``: the GPU unless the caller asks for the CPU.
+    """
+    if model == "gat":
+        raise NotImplementedError(
+            "gat has no cost-model simulation path: attention sparsity is "
+            "input-dependent, so there is no density to propagate -- use "
+            "the real-numerics engines (build_dense / serving)")
+    dev = resolve(device)
+    spec_g = graph_data.TABLE_VI[dataset]
+    spec = make_model_spec(model, spec_g.f_in, spec_g.hidden,
+                           spec_g.n_classes)
+    meta = GraphMeta(dataset, spec_g.n_vertices, spec_g.n_edges, spec_g.f_in)
+    cm = compiler.compile_model(spec, meta, n_cc=n_cc, align=align,
+                                on_chip_bytes=on_chip_bytes)
+    p = cm.partition
+    stats = graph_data.block_stats(dataset, p.n1, p.n2, seed=seed)
+    for k in cm.graph.kernels:
+        if k.kernel_type != KernelType.UPDATE or k.rhs in stats:
+            continue
+        stats.update(graph_data.weight_stats(
+            [k.f_in, k.f_out], p.n2, weight_density, seed=seed,
+            names=[k.rhs]))
+    stats = runtime.propagate_stats(cm, stats, relu_keep=relu_keep)
+    return SimGNN(cm, stats, dev)

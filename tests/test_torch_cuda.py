@@ -1014,3 +1014,47 @@ def test_minibatch_stream_equals_its_oracle_on_the_card(cuda, model):
     assert all(t.done for t in tickets)
     for t, w in zip(tickets, on.oracle_queries([t.seeds for t in tickets])):
         assert np.array_equal(t.result(), w)
+
+
+def test_simulate_plans_on_the_card_as_on_the_cpu(cuda):
+    """The cost simulator planning on the card gives the CPU's histograms
+    and makespans, under both cost models."""
+    from repro_torch.core import runtime
+    from repro_torch.core.perf_model import FPGACostModel, TPUCostModel
+    from repro_torch.models import gnn
+    sim = gnn.build_sim("sage", "CI")
+    assert sim.device.type == "cuda"
+    for strategy, model in (("dynamic", FPGACostModel()), ("s1", None),
+                            ("dynamic", TPUCostModel())):
+        got = sim.simulate(strategy, model=model)
+        want = runtime.simulate_inference(sim.compiled, sim.stats,
+                                          strategy=strategy, model=model,
+                                          device="cpu")
+        for g, w in zip(got.kernels, want.kernels):
+            np.testing.assert_array_equal(g.histogram, w.histogram)
+            assert g.makespan_cycles == w.makespan_cycles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_formats_on_the_card(cuda, dtype):
+    from repro_torch.core import profiler
+    x = sparse(21, 45, 70, 0.1, cuda).to(dtype)
+    x[7] = 0
+    for cap in (None, 100, 20):
+        for conv, fields in ((formats.dense_to_coo,
+                              ("rows", "cols", "values", "nnz")),
+                             (formats.dense_to_csr,
+                              ("indptr", "indices", "values"))):
+            got, want = conv(x, cap), conv(x.cpu(), cap)
+            for f in fields:
+                assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert torch.equal(formats.coo_to_dense(formats.dense_to_coo(x)), x)
+    csr = formats.dense_to_csr(x)
+    assert torch.equal(formats.csr_to_dense(csr), x)
+    assert torch.equal(formats.coo_to_csr(formats.csr_to_coo(csr)).indptr,
+                       csr.indptr)
+    via, direct = formats.csr_to_ell(csr, 12), formats.dense_to_ell(x, 12)
+    for f in ("values", "cols", "row_counts"):
+        assert torch.equal(getattr(via, f), getattr(direct, f)), f
+    assert torch.equal(profiler.block_tile_density(x, (32, 32), (8, 8)).cpu(),
+                       profiler.block_tile_density(x.cpu(), (32, 32), (8, 8)))

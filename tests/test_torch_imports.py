@@ -113,3 +113,35 @@ def test_lm_kernels_on_cpu_tensors_take_the_plain_versions():
     assert ops.flash_attention(q, kv, kv, causal=True).shape == q.shape
     assert all(v == 0 for v in K.launch_counts().values())
     assert {"tile_nnz", "flash_attention"} <= set(K.launch_counts())
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.core.formats",
+     "COOMatrix CSRMatrix dense_to_coo coo_to_dense dense_to_csr _csr_rows "
+     "csr_to_dense coo_to_csr csr_to_coo csr_to_ell"),
+    ("repro_torch.core.profiler",
+     "tile_occupancy block_tile_density block_density_from_mask"),
+    ("repro_torch.core.perf_model", "predict_output_density"),
+    ("repro_torch.core.analyzer",
+     "plan_kernel_host TaskPlan plan_task plan_kernel primitive_histogram"),
+    ("repro_torch.core.runtime",
+     "propagate_stats _pool_rows _operand_block_densities "
+     "simulate_inference"),
+    ("repro_torch.models.gnn", "SimGNN build_sim"),
+    ("repro_torch.data.graphs", "block_stats weight_stats _block_sizes"),
+    ("repro_torch.core.dynasparse", "dynasparse_dense_equivalent")])
+def test_simulator_slice_imports_no_jax(module, names):
+    """The simulator slice's names live in the port and pull in neither
+    jax nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        f"missing = [n for n in {names.split()!r} if not hasattr(m, n)]\n"
+        "assert not missing, missing\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', "
+        "'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

@@ -28,6 +28,7 @@ PHASES = [("build", "build"),
           ("phase 5c serving", "tile_nnz_batched_vs_per_slot"),
           ("phase 5d continuous", "continuous_full_width"),
           ("phase 5e mini-batch", "minibatch_stream"),
+          ("phase 5f simulator", "simulator_phase"),
           ("phase 6, engine times", "lm_bundle"),
           ("phases 7-8 LM kernels, scoring", "lm_score"),
           ("phase 9 LM serving", "lm_serve"),
