@@ -54,6 +54,17 @@ card at the shapes its path gives it, then drives the port's paths:
   Table VII row of each pair; the flat COO/CSR formats of CiteSeer's
   A_mean on the card against the CPU's, ``csr_spmm`` over ``csr_to_ell``
   against the ELL route, and ``block_tile_density`` through ``tile_nnz``;
+* multi-device wave dispatch (``mesh=``, ``submesh=``, ``resize``): SAGE
+  at CiteSeer's widths on ``cores_mesh(1)``, the card, == the unsharded
+  serve == ``run_naive`` bitwise with the same launches; on 4 emulated
+  lanes of the one card (one slot each; they run one after another, so
+  their walls measure no multi-device speed) and on the groups of a
+  ``[2, 1, 1]`` partition, bitwise, with ``tile_nnz_batched`` launched
+  once per lane per request input; SAGE ``s1`` and GCN row-CSR streams
+  across the lanes (``spdmm``, ``csr_spmm``); the scripted stream
+  through a ``resize``/``autoscale`` server on the 4 lanes, its dispatch
+  log and group plans equal to the CPU's; wave walls per lane count and
+  device busy time;
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
@@ -820,6 +831,9 @@ def main() -> int:
     # ---------------- phase 5f: the cost-model simulator ------------------
     simulator_phase(torch, np, K, dev, card, A, H0)
 
+    # ---------------- phase 5g: multi-device wave dispatch ----------------
+    sharded_phase(torch, np, K, dev, card)
+
     # ---------------- phase 6: the per-primitive path (ops.matmul) --------
     K.reset_launch_counts()
     for prim in (Primitive.GEMM, Primitive.SPDMM, Primitive.SPMM):
@@ -1239,7 +1253,7 @@ def serving_phase(torch, np, K, dev, card, kernel_entry, small_checks,
         the engine's own entry points back."""
         launch, finish = eng.executor.launch_batch, eng.finish_wave
 
-        def launch_batch(cm, shared, batched):
+        def launch_batch(cm, shared, batched, mesh=None):
             flows = runtime.FusedModelExecutor._resolved_flows(cm)
             needed = [n_ for n_, _ in runtime.FusedModelExecutor
                       ._needed_inputs(flows) if n_ in batched]
@@ -1248,7 +1262,7 @@ def serving_phase(torch, np, K, dev, card, kernel_entry, small_checks,
             try:
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    pending = launch(cm, shared, batched)
+                    pending = launch(cm, shared, batched, mesh=mesh)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             syncs = [str(w_.message)[:120] for w_ in caught
@@ -2748,6 +2762,279 @@ def leaves(tree):
 def rel_err(torch, got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+# phase 5g: multi-device wave dispatch.  The card's machine holds ONE H100,
+# so (a) is a real one-card mesh and (b)/(c) run EMULATED lanes
+# (cores_mesh(4, device=cuda:0)): the same per-lane walks, placements and
+# group plans as four cards, one lane after another on the one card, so
+# their walls measure no multi-device speed
+SHARD_LANES = 4
+
+
+def sharded_phase(torch, np, K, dev, card) -> None:
+    """Phase 5g: multi-device wave dispatch (``mesh=``, ``submesh=``,
+    ``resize``/``autoscale``).
+
+    (a) SAGE at CiteSeer's widths (phase 5c (b)'s requests) on
+    ``cores_mesh(1)``, the real card: serve == the unsharded engine's
+    serve == run_naive bitwise, ``wave_lanes`` 1, one walk plan per bucket,
+    the same launch counts per serve; (b) the same requests on 4 emulated
+    lanes, one slot each, and through the groups of a ``[2, 1, 1]``
+    partition (``begin_wave(submesh=...)``), then the reference's serving
+    stream for SAGE under ``s1`` and GCN on the row-CSR route (``spdmm``
+    and ``csr_spmm`` across the lane split): == run_naive bitwise,
+    ``tile_nnz_batched`` launches == lanes x request inputs per wave, one
+    walk plan per (bucket, group size); (c) the scripted stream
+    (``tests/torch_scripted_stream.py``) through a ``resize=True,
+    autoscale=True`` server on 4 emulated lanes, on the card and on the
+    CPU: equal dispatch logs, group plans, ``last_auto_lanes`` and
+    tickets, == run_naive bitwise.  Records the wave walls per lane count
+    (``emulated`` where they are) and the device busy time."""
+    from repro_torch.core import runtime
+    from repro_torch.core.perf_model import TPUCostModel
+    from repro_torch.distributed import sharding
+    from repro_torch.serving.graph_engine import (GraphServeEngine,
+                                                  random_requests)
+    from repro_torch.serving.scheduler import ContinuousGraphServer
+    t_phase = time.perf_counter()
+
+    def inputs(eng, bucket):
+        flows = runtime.FusedModelExecutor._resolved_flows(
+            eng._compiled[bucket])
+        return len([n_ for n_, _ in runtime.FusedModelExecutor
+                    ._needed_inputs(flows) if n_ in eng._input_names[bucket]])
+
+    def log_waves(eng):
+        """(bucket, lanes) of every wave the engine begins from now on."""
+        waves, begin = [], eng.begin_wave
+
+        def begin_wave(bucket, wave, submesh=None):
+            h_ = begin(bucket, wave, submesh=submesh)
+            waves.append((bucket, h_.pending.lanes))
+            return h_
+
+        eng.begin_wave = begin_wave
+        return waves
+
+    def window(fn):
+        """``fn()`` between a reset and a read of the launch counts."""
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, K.launch_counts()
+
+    def bitwise(results, naive, label):
+        check(sorted(r_.request_id for r_ in results) == sorted(naive),
+              f"{label}: not every request served once")
+        for r_ in results:
+            check(np.array_equal(r_.logits, naive[r_.request_id]),
+                  f"{label}: request {r_.request_id} != run_naive")
+
+    def batched_ok(eng, waves, counts, label):
+        want = sum(lanes * inputs(eng, b_) for b_, lanes in waves)
+        check(counts["tile_nnz_batched"] == want,
+              f"{label}: {counts['tile_nnz_batched']} tile_nnz_batched "
+              f"launches, lanes x request inputs per wave make {want}")
+        pairs = {(b_, lanes) for b_, lanes in waves}
+        check(eng.executor.trace_count <= len(pairs),
+              f"{label}: {eng.executor.trace_count} walk plans for "
+              f"{len(pairs)} (bucket, group size) pairs")
+
+    def wave_walls(eng, fn, n=2):
+        eng.bucket_walls, eng.group_walls = {}, {}
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        walls = [w_ for ws in eng.group_walls.values() for w_ in ws]
+        return statistics.median(walls) * 1e3
+
+    # ---- (a) a real one-card mesh ---------------------------------------
+    t_part = time.perf_counter()
+    reqs = random_requests(CI_REQUESTS, f_in=CI_F_IN, sizes=CI_SIZES, seed=0,
+                           avg_degree=CI_DEGREE, feat_density=CI_FEAT)
+    kw = dict(f_in=CI_F_IN, hidden=16, n_classes=CI_CLASSES, slots=4,
+              min_bucket=64)
+    plain = GraphServeEngine("sage", device=dev, **kw)
+    one = GraphServeEngine("sage", mesh=sharding.cores_mesh(1), **kw)
+    check(one.mesh.devices == (plain.weights["Wself1"].device,)
+          and one.lanes == 1, f"cores_mesh(1) is {one.mesh}")
+    naive = {r_.request_id: r_.logits for r_ in plain.run_naive(reqs)}
+    plain.serve(reqs)
+    one.serve(reqs)
+    p_res, p_counts = window(lambda: plain.serve(reqs))
+    o_waves = log_waves(one)
+    o_res, o_counts = window(lambda: one.serve(reqs))
+    o_waves = list(o_waves)
+    bitwise(p_res, naive, "unsharded serve")
+    bitwise(o_res, naive, "one-card mesh")
+    check(one.last_wave_report.wave_lanes == 1
+          and all(lanes == 1 for _, lanes in o_waves),
+          "one-card mesh: a wave ran on more than one lane")
+    check(one.executor.trace_count == len(one.buckets) == len(CI_BUCKETS),
+          f"one-card mesh: {one.executor.trace_count} walk plans for "
+          f"{len(one.buckets)} buckets")
+    check(o_counts == p_counts, f"one-card mesh launched {o_counts}, "
+          f"the unsharded engine {p_counts}")
+    batched_ok(one, o_waves, o_counts, "one-card mesh")
+    walls = {"unsharded": wave_walls(plain, lambda: plain.serve(reqs)),
+             "1 (card)": wave_walls(one, lambda: one.serve(reqs))}
+    record("sharded_one_card", card=card, model="sage", requests=len(reqs),
+           buckets=one.buckets, waves=len(o_waves), launches=o_counts,
+           equal_unsharded_launches=True, bitwise_naive=True,
+           bitwise_unsharded=True, traces=one.executor.trace_count,
+           seconds=time.perf_counter() - t_part)
+    del one, p_res, o_res
+
+    # ---- (b) emulated lanes on the one card -----------------------------
+    t_part = time.perf_counter()
+    mesh = sharding.cores_mesh(SHARD_LANES, device=dev)
+    check(mesh.devices == (mesh.devices[0],) * SHARD_LANES, f"mesh {mesh}")
+    four = GraphServeEngine("sage", mesh=mesh, **kw)
+    four.serve(reqs)
+    f_waves = log_waves(four)
+    f_res, f_counts = window(lambda: four.serve(reqs))
+    f_waves = list(f_waves)
+    bitwise(f_res, naive, "4 emulated lanes")
+    check(four.last_wave_report.wave_lanes == SHARD_LANES
+          and all(lanes == SHARD_LANES for _, lanes in f_waves),
+          "4 emulated lanes: a wave on another lane count")
+    for name in ("tile_nnz_batched", "dispatch"):
+        check(f_counts[name] > 0, f"4 emulated lanes never launched {name}")
+    # the [2, 1, 1] groups each run the first wave of the smallest bucket
+    groups = sharding.partition_mesh(mesh, [2, 1, 1])
+    g_bucket = CI_BUCKETS[0]
+    g_reqs = [r_ for r_ in reqs if four.bucket_for(r_.n_vertices)
+              == g_bucket][:4]
+    g_waves = log_waves(four)
+    g_res, g_counts = window(lambda: [
+        r_ for g_ in groups for r_ in four.finish_wave(
+            four.begin_wave(g_bucket, g_reqs, submesh=g_))])
+    g_waves = list(g_waves)
+    check(len(g_res) == len(groups) * len(g_reqs) > 0,
+          f"[2, 1, 1] groups served {len(g_res)} results")
+    for r_ in g_res:
+        check(np.array_equal(r_.logits, naive[r_.request_id]),
+              f"[2, 1, 1] groups: request {r_.request_id} != run_naive")
+    check(sorted({lanes for _, lanes in g_waves}) == [1, 2],
+          f"[2, 1, 1] groups ran on {g_waves}")
+    batched_ok(four, f_waves + g_waves, {
+        "tile_nnz_batched": f_counts["tile_nnz_batched"]
+        + g_counts["tile_nnz_batched"]}, "4 emulated lanes and groups")
+    walls[f"{SHARD_LANES} (emulated)"] = wave_walls(
+        four, lambda: four.serve(reqs))
+    busy = {}
+    for label, eng in (("unsharded", plain),
+                       (f"{SHARD_LANES} (emulated)", four)):
+        prof = profile_device(torch, lambda: eng.serve(reqs), n=1, top=6)
+        busy[label] = {k_: prof[k_] for k_ in (
+            "device_busy_ms", "idle_share", "wall_ms_profiled", "complete")}
+    del f_res, g_res
+    stream = []
+    sreqs = random_requests(STREAM_REQUESTS, f_in=STREAM_F_IN,
+                            sizes=STREAM_SIZES, seed=STREAM_SEED)
+    cheap = dataclasses.replace(TPUCostModel(), eff_transform=1.0,
+                                transform_overhead_s=0.0)
+    for model, strategy, cost, need in (
+            ("sage", "s1", None, "spdmm"),
+            ("gcn", "dynamic", cheap, "csr_spmm")):
+        label = f"{model} {strategy}" + (" CSR" if cost else "") + \
+            f" on {SHARD_LANES} emulated lanes"
+        eng = GraphServeEngine(model, f_in=STREAM_F_IN, hidden=16,
+                               n_classes=7, slots=STREAM_SLOTS, weight_seed=0,
+                               strategy=strategy, cost_model=cost, mesh=mesh)
+        waves = log_waves(eng)
+        res, counts = window(lambda: eng.serve(sreqs))
+        waves = list(waves)
+        bitwise(res, {r_.request_id: r_.logits
+                      for r_ in eng.run_naive(sreqs)}, label)
+        check(counts[need] > 0, f"{label}: {need} never ran")
+        batched_ok(eng, waves, counts, label)
+        check(eng.executor.trace_count == len(eng.buckets),
+              f"{label}: {eng.executor.trace_count} walk plans for "
+              f"{len(eng.buckets)} buckets")
+        stream.append({"run": label, "waves": len(waves),
+                       "buckets": eng.buckets, "launches": counts,
+                       "bitwise_naive": True})
+        del eng
+    record("sharded_emulated", card=card, lanes=SHARD_LANES, emulated=True,
+           model="sage", requests=len(reqs), launches=f_counts,
+           groups=[2, 1, 1], group_launches=g_counts,
+           group_waves=[list(w_) for w_ in g_waves],
+           traces=four.executor.trace_count, stream=stream,
+           bitwise_naive=True, seconds=time.perf_counter() - t_part)
+    record("sharded_walls", card=card, model="sage", requests=len(reqs),
+           wave_wall_p50_ms=walls, device=busy,
+           note="emulated lanes run one after another on one card")
+    del four, plain
+
+    # ---- (c) resize continuous serving, scripted ------------------------
+    t_part = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_scripted_stream as scripted
+    sreqs = random_requests(scripted.N_STREAM, f_in=32,
+                            sizes=scripted.STREAM_SIZES,
+                            seed=scripted.STREAM_SEED)
+    runs = []
+    for where in (dev, "cpu"):
+        eng = GraphServeEngine("gcn", f_in=32, hidden=8, n_classes=6,
+                               slots=SHARD_LANES, min_bucket=32,
+                               mesh=sharding.cores_mesh(SHARD_LANES,
+                                                        device=where))
+        clk = scripted.stream_clock()
+        scripted.script_walls(eng, clk)
+        srv = ContinuousGraphServer(eng, clock=clk, resize=True,
+                                    autoscale=True, **scripted.SERVER_KW,
+                                    **scripted.POLICIES["never"])
+        plans, dispatch = [], srv._dispatch_groups
+
+        def dispatch_groups(ready, srv=srv, plans=plans, dispatch=dispatch):
+            out = dispatch(ready)
+            plans.append((list(srv.last_group_sizes), srv.last_auto_lanes))
+            return out
+
+        srv._dispatch_groups = dispatch_groups
+        srv.warmup((20,))
+        (tickets, done), counts = window(lambda: scripted.stream(
+            srv, clk, sreqs, np.random.default_rng(3)))
+        del eng.finish_wave
+        runs.append((eng, srv, plans, tickets, done, counts))
+    (eng, srv, plans, tickets, done, counts), (_, c_srv, c_plans, c_tickets,
+                                               c_done, _) = runs
+
+    def wave_log(s_):
+        return [(w_.bucket, w_.n_real, w_.reason, w_.cut_at, w_.wall,
+                 w_.lane, w_.group_size, w_.classes) for w_ in s_.dispatch_log]
+
+    check(wave_log(srv) == wave_log(c_srv), "resize: dispatch log differs "
+          "from the CPU's")
+    check(plans == c_plans, "resize: group plans or autoscaled lane counts "
+          "differ from the CPU's")
+    check([(int(t_), t_.verdict, t_.bucket, t_.predicted_wall)
+           for t_ in tickets] == [(int(t_), t_.verdict, t_.bucket,
+                                   t_.predicted_wall) for t_ in c_tickets],
+          "resize: tickets differ from the CPU's")
+    check(len({w_.group_size for w_ in srv.dispatch_log}) > 1
+          and any(k_ is not None for _, k_ in plans),
+          f"resize: no group was resized ({plans})")
+    shed = {int(t_) for t_ in srv.shed_log}
+    bitwise(done, {r_.request_id: r_.logits for r_ in eng.run_naive(
+        [r_ for r_, t_ in zip(sreqs, tickets) if int(t_) not in shed])},
+        "resize")
+    for a_, b_ in zip(done, c_done):
+        check(bool(np.allclose(a_.logits, b_.logits, atol=TOL, rtol=TOL)),
+              f"resize: card logits vs CPU beyond {TOL}")
+    for name in ("tile_nnz_batched", "dispatch"):
+        check(counts[name] > 0, f"resize stream never launched {name}")
+    record("sharded_resize", card=card, lanes=SHARD_LANES, emulated=True,
+           requests=len(sreqs), waves=len(srv.dispatch_log),
+           log=[[w_.bucket, w_.n_real, w_.reason, w_.lane, w_.group_size]
+                for w_ in srv.dispatch_log],
+           plans=plans, last_auto_lanes=srv.last_auto_lanes,
+           launches=counts, equal_cpu=True, bitwise_naive=True,
+           seconds=time.perf_counter() - t_part)
+    record("sharded_phase", card=card,
+           seconds=time.perf_counter() - t_phase)
 
 
 def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:

@@ -18,11 +18,15 @@ nothing itself, and its writeback counts are what the head's Aggregate
 plans from.
 
 :meth:`FusedModelExecutor.run_batch` (``launch_batch`` + ``finish_batch``)
-serves a wave of stacked requests on one device: the shared weights are
-profiled once per tensor identity, the requests' inputs in one batched
+serves a wave of stacked requests: the shared weights are profiled once
+per tensor identity, the requests' inputs in one batched
 ``tile_nnz`` launch per (input, granularity), and each slot walks the same
-fused kernel walk, planning from its own profile.  Sharded dispatch is
-not ported yet.
+fused kernel walk, planning from its own profile.  With ``mesh=`` (a 1-D
+``cores`` mesh, ``distributed.sharding``) the wave's slots split evenly
+over the mesh's devices (``sharding.wave_slices``): each lane profiles
+and walks its own slot range on its own device, with its own copy of the
+weights, and ``finish_batch`` waits on every lane.  Walk plans are keyed
+by the group SIZE, so equal-size device groups share one.
 
 :func:`simulate_inference` is the pure cost-model execution (no numerics):
 from per-tensor density statistics it predicts a strategy's latency on the
@@ -34,6 +38,7 @@ graphs whose dense operands would not fit (NELL, Reddit).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -51,6 +56,7 @@ from repro_torch.core.ir import Activation, AggOp, KernelIR, KernelType
 from repro_torch.core.perf_model import FPGACostModel
 from repro_torch.core.profiler import SparsityStats
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import sharding
 
 # instructions the soft processor spends per K2P decision (Alg. 7 is a few
 # compares + buffer assignment); 500 MIPS MicroBlaze (Section VII).
@@ -89,6 +95,9 @@ class InferenceReport:
     # device; 0.0 off the wave path
     gather_seconds: float = 0.0
     copy_seconds: float = 0.0
+    # the number of devices (lanes) the wave's slots were split over; 1
+    # when unsharded
+    wave_lanes: int = 1
 
     @property
     def total_cycles(self) -> float:
@@ -132,19 +141,23 @@ class InferenceReport:
 class PendingWave:
     """An in-flight ``launch_batch`` wave (its handle for ``finish_batch``).
 
-    ``outs``/``sides`` are stacked (B, ...) device tensors whose kernels
-    may still be running; ``done`` is a CUDA event recorded after the last
-    of them (None on the CPU, where everything has run).  ``launched_at``
-    anchors the wave's launch-to-ready wall, so a wave queued behind
-    earlier work on the stream reports the wait it saw."""
+    ``outs``/``sides`` hold one entry per lane: that lane's slots stacked
+    (B/lanes, ...) on its device, whose kernels may still be running.
+    ``done`` holds one CUDA event per lane, recorded after its last kernel
+    (empty on the CPU, where everything has run).  ``launched_at`` anchors
+    the wave's launch-to-ready wall, so a wave queued behind earlier work
+    on the stream reports the wait it saw; ``copy_seconds`` is the host
+    time spent enqueuing the per-lane input copies of a sharded wave."""
 
-    outs: Dict[str, torch.Tensor]
-    sides: list
+    outs: List[Dict[str, torch.Tensor]]
+    sides: List[list]
     compiled: CompiledModel
     n_cc: int
     wave_slots: int
     launched_at: float
-    done: Optional[torch.cuda.Event] = None
+    lanes: int = 1
+    done: Tuple[torch.cuda.Event, ...] = ()
+    copy_seconds: float = 0.0
 
 
 def _k2p_model_seconds(num_decisions: int) -> float:
@@ -453,9 +466,12 @@ class FusedModelExecutor:
         self.csr_rmax = csr_rmax
         self.collect_report = collect_report
         self._programs: Dict[tuple, _WalkPlan] = {}
-        # (env name, granularity) -> (tensor ref, BlockProfile); the ref
-        # keeps the tensor alive so the identity check is sound
+        # (env name, granularity, device) -> (tensor ref, BlockProfile);
+        # the ref keeps the tensor alive so the identity check is sound
         self._input_profiles: Dict[tuple, tuple] = {}
+        # (env name, device) -> (source tensor, its copy there): the shared
+        # weights of a lane on another device than the caller's
+        self._device_copies: Dict[tuple, tuple] = {}
         self.cache_hits = 0
         self.cache_misses = 0
         self.trace_count = 0
@@ -592,10 +608,11 @@ class FusedModelExecutor:
         out = []
         for name, blk in needed:
             arr = tensors[name]
-            cached = self._input_profiles.get((name, blk))
+            key = (name, blk, arr.device)
+            cached = self._input_profiles.get(key)
             if cached is None or cached[0] is not arr:
                 cached = (arr, profiler.BlockProfile.measure(arr, blk))
-                self._input_profiles[(name, blk)] = cached
+                self._input_profiles[key] = cached
             out.append(cached[1].counts)
         return tuple(out)
 
@@ -639,19 +656,37 @@ class FusedModelExecutor:
     # -- batched (multi-tenant) execution ------------------------------------
     def launch_batch(self, compiled: CompiledModel,
                      shared: Dict[str, torch.Tensor],
-                     batched: Dict[str, torch.Tensor]) -> PendingWave:
+                     batched: Dict[str, torch.Tensor],
+                     mesh: Optional[sharding.CoresMesh] = None
+                     ) -> PendingWave:
         """Enqueue one wave WITHOUT synchronizing with the device: the
         asynchronous half of :meth:`run_batch`.
 
         Nothing here waits for the device (no ``.item()``, no copy to the
         host), so a serving layer can launch the next wave while this one
-        runs; :meth:`finish_batch` blocks and collects ``(outs, report)``."""
+        runs; :meth:`finish_batch` blocks and collects ``(outs, report)``.
+        With ``mesh``, ``batched`` may lie on the host (pinned): each
+        lane's slot range is copied to its own device here
+        (``sharding.shard_wave``)."""
         n_cc = self.n_cc or compiled.partition.n_cc
-        # one plan per (model, shared shapes, wave shapes): a server that
-        # pads waves to a fixed slot count builds one per shape bucket
+        lanes = 1
+        if mesh is not None:
+            if (len(mesh.axis_names) != 1
+                    or mesh.axis_names[0] != sharding.CORES_AXIS):
+                raise ValueError(
+                    f"run_batch mesh must be 1-D over "
+                    f"{sharding.CORES_AXIS!r}, got {mesh.axis_names}")
+            lanes = mesh.size
+            # raises on a wave whose slots the mesh does not divide
+            sharding.wave_slices(int(next(iter(batched.values())).shape[0]),
+                                 lanes)
+        # one plan per (model, group size, shared shapes, wave shapes): a
+        # server that pads waves to a fixed slot count builds one per shape
+        # bucket and group size, whichever devices the group holds
         plan = self._program(compiled, (
-            "wave", None, self._signature(compiled, shared),
-            self._tensor_sig(batched)))
+            "wave",
+            None if mesh is None else sharding.abstract_cores_mesh(lanes),
+            self._signature(compiled, shared), self._tensor_sig(batched)))
         missing = [n for n, _ in plan.needed
                    if n not in shared and n not in batched]
         if missing:
@@ -660,13 +695,46 @@ class FusedModelExecutor:
         request_needed = tuple((n, b) for n, b in plan.needed
                                if n in batched)
         slots = _wave_slots(batched)
-        shared_counts = self._input_counts(shared_needed, shared)
+        copy_seconds = 0.0
+        if mesh is None:
+            parts = [(None, batched)]
+        else:
+            t0 = time.perf_counter()
+            parts = list(zip(mesh.devices, sharding.shard_wave(batched,
+                                                               mesh)))
+            copy_seconds = time.perf_counter() - t0
         t0 = time.perf_counter()
+        outs, sides, done = [], [], []
+        for dev, part in parts:
+            with _on(dev):
+                o, s = self._walk_wave(plan, self._shared_on(shared, dev),
+                                       shared_needed, request_needed, part)
+                final = o[plan.kernels[-1].out]
+                if final.is_cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(final.device))
+                    done.append(ev)
+            outs.append(o)
+            sides.append(s)
+        return PendingWave(outs=outs, sides=sides, compiled=compiled,
+                           n_cc=n_cc, wave_slots=slots, launched_at=t0,
+                           lanes=lanes, done=tuple(done),
+                           copy_seconds=copy_seconds)
+
+    def _walk_wave(self, plan: _WalkPlan, shared: Dict[str, torch.Tensor],
+                   shared_needed: tuple, request_needed: tuple,
+                   batched: Dict[str, torch.Tensor]) -> tuple:
+        """One lane of a wave on its device: the requests' inputs profiled
+        in one launch per (input, granularity), then each slot's fused
+        walk from its own profile.  Returns the stacked outputs and
+        per-kernel sides."""
+        slots = _wave_slots(batched)
+        shared_counts = self._input_counts(shared_needed, shared)
         base = {(name, blk): profiler.BlockProfile(
                     counts, tuple(shared[name].shape), blk)
                 for (name, blk), counts in zip(shared_needed, shared_counts)}
         # each request is a new graph: its inputs are profiled on the
-        # device, one launch per (input, granularity) for the whole wave
+        # device, one launch per (input, granularity) for the lane's slots
         wave_counts = [profiler.batched_block_counts(batched[name], blk)
                        for name, blk in request_needed]
         final = plan.kernels[-1].out
@@ -688,23 +756,45 @@ class FusedModelExecutor:
         sides = [tuple(torch.stack([s_[k][j] for s_ in slot_sides])
                        for j in range(5))
                  for k in range(len(plan.kernels))]
-        done = None
-        if outs[final].is_cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(outs[final].device))
-        return PendingWave(outs=outs, sides=sides, compiled=compiled,
-                           n_cc=n_cc, wave_slots=slots,
-                           launched_at=t0, done=done)
+        return outs, sides
+
+    def _shared_on(self, shared: Dict[str, torch.Tensor],
+                   dev: Optional[torch.device]) -> Dict[str, torch.Tensor]:
+        """The shared tensors on ``dev``: themselves where they lie there,
+        else one copy per (tensor identity, device), kept, so that a lane
+        on another card neither copies nor re-profiles its weights in
+        steady state."""
+        if dev is None or all(v.device == dev for v in shared.values()):
+            return shared
+        out = {}
+        for name, v in shared.items():
+            if v.device != dev:
+                cached = self._device_copies.get((name, dev))
+                if cached is None or cached[0] is not v:
+                    cached = (v, v.to(dev))
+                    self._device_copies[(name, dev)] = cached
+                v = cached[1]
+            out[name] = v
+        return out
 
     def finish_batch(self, pending: PendingWave
                      ) -> Tuple[Dict[str, torch.Tensor], InferenceReport]:
         """Block on a :meth:`launch_batch` wave and assemble its report
-        (the synchronous half of :meth:`run_batch`)."""
-        if pending.done is not None:
-            pending.done.synchronize()
+        (the synchronous half of :meth:`run_batch`).  A sharded wave's
+        lanes are gathered in slot order onto the first lane's device."""
+        for ev in pending.done:
+            ev.synchronize()
         wall = time.perf_counter() - pending.launched_at
         topo = pending.compiled.graph.topo_order()
-        sides = pending.sides
+        outs, sides = pending.outs[0], pending.sides[0]
+        if pending.lanes > 1:
+            dev = outs[topo[-1].out].device
+            outs = {name: torch.cat([o[name].to(dev) for o in pending.outs])
+                    for name in outs}
+            sides = [tuple(torch.cat([s_[k][j].to(dev)
+                                      for s_ in pending.sides])
+                           for j in range(5))
+                     for k in range(len(topo))]
         self.profiled_densities = {
             k.out: side[3] for k, side in zip(topo, sides)}      # (B, ...)
         if self.keep_codes:
@@ -720,32 +810,46 @@ class FusedModelExecutor:
                                            pending.n_cc, self.model)
                     rep.name = f"{k.name}[{b}]"
                     reports.append(rep)
-        return pending.outs, InferenceReport(
+        return outs, InferenceReport(
             reports, self.strategy, fused_wall_seconds=wall,
-            wave_slots=pending.wave_slots)
+            wave_slots=pending.wave_slots,
+            copy_seconds=pending.copy_seconds, wave_lanes=pending.lanes)
 
     def run_batch(self, compiled: CompiledModel,
                   shared: Dict[str, torch.Tensor],
-                  batched: Dict[str, torch.Tensor]
+                  batched: Dict[str, torch.Tensor],
+                  mesh: Optional[sharding.CoresMesh] = None
                   ) -> Tuple[Dict[str, torch.Tensor], InferenceReport]:
-        """Serve a WAVE of stacked inferences on one device.
+        """Serve a WAVE of stacked inferences.
 
         * ``shared`` -- tensors common to every request (the weights),
-          profiled once per tensor identity (``run``'s cache);
+          profiled once per (tensor identity, device) (``run``'s cache);
         * ``batched`` -- per-request tensors stacked on a leading slot axis
           (``(B, ...)``), profiled on the device in one batched launch per
-          (input, granularity); each slot then walks the fused kernel walk
-          on its own slice, planning its K2P codes from its own profile.
+          (input, granularity) and lane; each slot then walks the fused
+          kernel walk on its own slice, planning its K2P codes from its own
+          profile;
+        * ``mesh`` -- a 1-D ``cores`` mesh (``sharding.cores_mesh``) whose
+          D devices each run B/D of the slots (``B % D == 0``); ``None``
+          runs the wave where ``batched`` lies.
 
         Returns ``(outs, report)``: every entry of ``outs`` is stacked
         ``(B, ...)`` (the final output, or every kernel's under
         ``keep_intermediates``); the report is wave-level, with
-        ``collect_report`` rows named ``"{kernel}[b]"``.  A slot's result
-        is bitwise what ``run`` gives on its slice.  Plans are cached per
-        (model, shared signature, wave signature), so ``trace_count`` grows
-        by at most one per bucket of a fixed-slot server."""
+        ``collect_report`` rows named ``"{kernel}[b]"`` and the lane count
+        in ``wave_lanes``.  A slot's result is bitwise what ``run`` gives
+        on its slice, on any mesh.  Plans are cached per (model, group
+        size, shared signature, wave signature), so ``trace_count`` grows
+        by at most one per (bucket, group size) of a fixed-slot server."""
         return self.finish_batch(self.launch_batch(compiled, shared,
-                                                   batched))
+                                                   batched, mesh=mesh))
+
+
+def _on(dev: Optional[torch.device]):
+    """Make ``dev`` the current CUDA device (a no-op off CUDA)."""
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def _wave_slots(batched: Dict[str, torch.Tensor]) -> int:

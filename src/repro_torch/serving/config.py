@@ -81,8 +81,8 @@ class EngineConfig:
     ``f_in`` is the one required field; everything else keeps the
     reference's default.  ``weights``/``cost_model`` hold live objects --
     equality on those falls back to identity.  The reference's ``donate``
-    and ``mesh`` are left out: nothing in the port reads them (sharded
-    waves are ``ROADMAP.md`` queue 1 item 4).
+    is left out: it is an XLA buffer-donation hint with no effect on
+    results, and a torch walk has no program whose buffers it could alias.
 
     * ``f_in`` -- input feature width every admitted request must match.
     * ``model`` -- ``"gcn"`` | ``"sage"`` | ``"gin"`` | ``"sgc"`` |
@@ -103,6 +103,8 @@ class EngineConfig:
     * ``format_aware`` / ``csr_rmax`` -- the row-CSR route (active under a
       cost model with format costs).
     * ``cost_model`` -- ``None`` = ``FPGACostModel()``.
+    * ``mesh`` -- a 1-D ``cores`` mesh (``distributed.sharding
+      .cores_mesh``) for sharded waves; ``None`` = one device.
     * ``device`` -- where the weights live and waves run (``None`` = the
       GPU, through ``device.resolve``; ``"cpu"`` runs the plain versions).
     """
@@ -122,6 +124,7 @@ class EngineConfig:
     on_chip_bytes: int = 256 * 1024
     collect_report: bool = False
     keep_codes: bool = False
+    mesh: Optional[Any] = None
     cost_model: Optional[Any] = None
     format_aware: bool = True
     csr_rmax: int = 64
@@ -148,10 +151,7 @@ class EngineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Every knob :class:`ContinuousGraphServer` is built from.  The
-    reference's ``resize`` and ``autoscale`` are left out: nothing in the
-    port reads them yet (multi-device lanes are ``ROADMAP.md`` queue 1
-    item 4).
+    """Every knob :class:`ContinuousGraphServer` is built from.
 
     The wave-cutting policy:
 
@@ -168,11 +168,15 @@ class ServeConfig:
     * ``max_wait`` -- hard age bound (seconds): a wave is force-cut once
       its oldest request has waited this long.
     * ``n_lanes`` -- dispatch lanes pulling cut waves (``None`` = one per
-      device, so 1).  On one device the waves kept in flight are
-      ``min(n_lanes, 2)`` (``ContinuousGraphServer.pipeline_depth``), so
-      a value above 2 behaves as 2: it adds lane labels, each with its
-      own wall EWMA, but no concurrency.  Measured on the H100, two waves
-      in flight were within noise of one (``PERF.md``).
+      device of the engine's mesh, 1 when unsharded).  Lanes of a shared
+      mesh keep ``min(n_lanes, 2)`` waves in flight
+      (``ContinuousGraphServer.pipeline_depth``), so a value above 2
+      behaves as 2: it adds lane labels, each with its own wall EWMA, but
+      no concurrency.  Measured on the H100, two waves in flight were
+      within noise of one (``PERF.md``).
+    * ``resize`` -- make the lanes DISJOINT device groups of the engine's
+      mesh, replanned between waves from the queue (``scheduler
+      .plan_groups``); requires an engine with a mesh.
 
     The overload control:
 
@@ -188,6 +192,9 @@ class ServeConfig:
       never).
     * ``priority_weight`` -- a priority-``p`` wave's class weight is
       ``priority_weight ** p`` in the weighted-fair launch order.
+    * ``autoscale`` -- resize mode only: re-pick the number of groups each
+      tick (``scheduler.plan_lanes``) by the predicted finish over the
+      per-size EWMA walls, instead of always spreading to ``n_lanes``.
 
     The giant-graph front door:
 
@@ -206,11 +213,13 @@ class ServeConfig:
     batch_patience: float = 1.0
     max_wait: float = 0.25
     n_lanes: Optional[int] = None
+    resize: bool = False
     shed: str = "never"
     admit_margin: float = 1.5
     max_pending: Optional[int] = None
     pressure_threshold: float = math.inf
     priority_weight: float = 2.0
+    autoscale: bool = False
     minibatch: Optional[Any] = None
 
     def validate(self) -> "ServeConfig":
@@ -242,6 +251,9 @@ class ServeConfig:
         if not self.priority_weight > 0.0:
             raise ValueError(
                 f"priority_weight {self.priority_weight} must be > 0")
+        if self.autoscale and not self.resize:
+            raise ValueError("autoscale=True requires resize=True "
+                             "(it re-picks the plan_groups lane count)")
         return self
 
     def __eq__(self, other):

@@ -1,7 +1,7 @@
 """Batched GNN serving: concurrent graph queries over one compiled model.
 
-Port of ``repro.serving.graph_engine`` (the synchronous engine on one
-device).  The paper's runtime serves a *stream* of queries: it profiles
+Port of ``repro.serving.graph_engine`` (the synchronous engine).  The
+paper's runtime serves a *stream* of queries: it profiles
 each incoming graph and re-plans the kernel-to-primitive mapping per
 input.  :class:`GraphServeEngine` runs that loop over the fused executor:
 
@@ -34,9 +34,16 @@ input.  :class:`GraphServeEngine` runs that loop over the fused executor:
   instead of copying ``features`` (``serving.minibatch.SeedRequest``
   copies the rows it gathered from the feature store at admission).
 
-Not ported yet: the sharded dispatch (``mesh``/``submesh``, slot placement
-over lanes), which comes with sharded waves (``ROADMAP.md`` queue 1 item
-4).
+* **Sharded waves.**  With ``mesh`` (a 1-D ``cores`` mesh,
+  ``distributed.sharding.cores_mesh``) every wave's slots split evenly
+  over the mesh's devices, and requests are placed into each device's
+  slot range by cost-aware LPT bins over :meth:`GraphServeEngine
+  .request_cost` (:meth:`GraphServeEngine._slot_layout`), so that the
+  per-device walks carry a balanced predicted load.  :meth:`GraphServeEngine
+  .begin_wave` also takes a per-wave ``submesh`` (a disjoint device group
+  from ``sharding.partition_mesh``): the continuous scheduler's resize
+  lanes.  Results stay bitwise :meth:`GraphServeEngine.run_naive`'s on any
+  mesh, and walk plans grow by at most one per (bucket, group size).
 """
 from __future__ import annotations
 
@@ -49,9 +56,11 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import compiler, runtime
+from repro_torch.core import scheduler as core_scheduler
 from repro_torch.core.compiler import CompiledModel, GraphMeta
 from repro_torch.core.perf_model import Primitive
 from repro_torch.data import graphs as graph_data
+from repro_torch.distributed import sharding
 from repro_torch.models import gnn as gnn_models
 from repro_torch.serving.config import UNSET, EngineConfig, merge_config
 
@@ -96,11 +105,13 @@ class GraphResult:
 @dataclasses.dataclass
 class InFlightWave:
     """A launched-but-unfinished wave (``begin_wave``'s handle): the
-    requests (request i in slot i) and the executor's pending dispatch.
-    Pass it to ``finish_wave`` to block and collect the results."""
+    requests, their slots (request i in slot ``slot_of[i]``) and the
+    executor's pending dispatch.  Pass it to ``finish_wave`` to block and
+    collect the results."""
 
     bucket: int
     wave: List[GraphRequest]
+    slot_of: List[int]
     pending: runtime.PendingWave
     final: str                      # env name of the model's output tensor
     index: int                      # admission wave index (GraphResult.wave)
@@ -152,6 +163,13 @@ class GraphServeEngine:
       device; with it on, the wave report carries per-request per-kernel
       rows.
 
+    ``mesh`` (a 1-D ``cores`` mesh) shards every wave over its devices:
+    ``slots`` must divide by its size, requests are LPT-binned into the
+    devices' slot ranges by :meth:`request_cost`, and the plan bound
+    becomes one per (bucket, group size).  :meth:`begin_wave` takes a
+    per-wave ``submesh`` too.  Without an explicit ``device`` the engine
+    lives on the mesh's first device.
+
     The knobs form an :class:`EngineConfig` (``config=`` /
     :meth:`from_config`; the resolved config is ``self.config``).  Explicit
     kwargs override config fields left at their default; a kwarg that
@@ -170,6 +188,7 @@ class GraphServeEngine:
                  on_chip_bytes: int = UNSET, collect_report: bool = UNSET,
                  keep_codes: bool = UNSET, cost_model=UNSET,
                  format_aware: bool = UNSET, csr_rmax: int = UNSET,
+                 mesh: Optional[sharding.CoresMesh] = UNSET,
                  device=UNSET):
         cfg = merge_config(EngineConfig, config, dict(
             model=model, f_in=f_in, hidden=hidden, n_classes=n_classes,
@@ -179,13 +198,24 @@ class GraphServeEngine:
             align=align, on_chip_bytes=on_chip_bytes,
             collect_report=collect_report, keep_codes=keep_codes,
             cost_model=cost_model, format_aware=format_aware,
-            csr_rmax=csr_rmax, device=device)).validate()
+            csr_rmax=csr_rmax, mesh=mesh, device=device)).validate()
         self.config = cfg
-        self.device = _device.resolve(cfg.device)
         self.spec = gnn_models.make_model_spec(cfg.model, cfg.f_in,
                                                cfg.hidden, cfg.n_classes)
         self.f_in = cfg.f_in
         self.slots = cfg.slots
+        # sharded dispatch: the mesh splits every wave's slots evenly over
+        # its devices, requests placed into each device's range by
+        # cost-aware LPT bins (_slot_layout)
+        self.mesh = cfg.mesh
+        self.lanes = 1 if self.mesh is None else self.mesh.size
+        if self.slots % self.lanes:
+            raise ValueError(
+                f"slots={self.slots} not divisible by the {self.lanes}-device "
+                f"cores mesh")
+        self.device = _device.resolve(
+            self.mesh.devices[0] if cfg.device is None and self.mesh
+            is not None else cfg.device)
         # keep the pad-to-pow2 contract whatever floor is passed
         self.min_bucket = 1 << (max(cfg.min_bucket, 2) - 1).bit_length()
         self.strategy = cfg.strategy
@@ -216,6 +246,9 @@ class GraphServeEngine:
         self.wave_walls: List[float] = []
         self.wave_loads: List[Tuple[int, int]] = []     # (real, slots)
         self.bucket_walls: Dict[int, List[float]] = {}
+        # per-group-size walls (1 when unsharded): the resize scheduler's
+        # per-size wall estimates seed from these
+        self.group_walls: Dict[int, List[float]] = {}
         self.last_wave_report: Optional[runtime.InferenceReport] = None
 
     @classmethod
@@ -388,13 +421,48 @@ class GraphServeEngine:
         req._dynasparse_cost = (memo_key, cost)
         return cost
 
+    def _slot_layout(self, wave: Sequence[GraphRequest],
+                     lanes: Optional[int] = None) -> List[int]:
+        """Request -> slot placement of one wave over ``lanes`` devices
+        (default: the engine mesh's size).
+
+        One lane keeps the FIFO layout.  On a group of several, device d
+        owns the slot range ``sharding.wave_slices(slots, lanes)[d]``;
+        requests are LPT-binned over their :meth:`request_cost` (capacity:
+        a device's slot count), so every device's walk carries a balanced
+        predicted load, and dummies fill the slots left.  Placement never
+        changes numerics (request isolation), only load balance."""
+        lanes = self.lanes if lanes is None else lanes
+        if lanes == 1:
+            return list(range(len(wave)))
+        ranges = sharding.wave_slices(self.slots, lanes)
+        bins = core_scheduler.assign_bins(
+            [self.request_cost(r) for r in wave], lanes,
+            capacity=ranges[0].stop)
+        next_slot = [r.start for r in ranges]
+        slots = []
+        for lane in bins:
+            slots.append(next_slot[lane])
+            next_slot[lane] += 1
+        return slots
+
     # -- execution ----------------------------------------------------------
-    def begin_wave(self, bucket: int, wave: Sequence[GraphRequest]
+    def begin_wave(self, bucket: int, wave: Sequence[GraphRequest],
+                   submesh: Optional[sharding.CoresMesh] = None
                    ) -> InFlightWave:
         """Launch one wave WITHOUT waiting for the device: fill one
-        zero-initialized (slots, ...) host buffer per graph input, request
-        i into slot i (dummy slots stay zero), copy each to the device
-        once, and hand the stacks to ``FusedModelExecutor.launch_batch``.
+        zero-initialized (slots, ...) host buffer per graph input, each
+        request into its slot of :meth:`_slot_layout` (dummy slots stay
+        zero), and hand the stacks to ``FusedModelExecutor.launch_batch``.
+
+        Unsharded, each stack is copied to the device once; on a mesh,
+        each lane's slot range goes to its own device (``sharding
+        .shard_wave``, inside ``launch_batch``).  ``submesh`` runs THIS
+        wave on one device group (a disjoint group of ``sharding
+        .partition_mesh``) instead of the engine's mesh, placing its
+        requests within that group's slot ranges only; ``slots`` must
+        divide by the group's size.  Equal-size groups share one walk
+        plan, so resizing groups between waves builds none.
 
         On the card the buffers are pinned and fresh per wave, so the copy
         is asynchronous and a wave can be filled while earlier ones run;
@@ -402,45 +470,59 @@ class GraphServeEngine:
         if not 0 < len(wave) <= self.slots:
             raise ValueError(
                 f"wave of {len(wave)} requests (engine slots={self.slots})")
+        mesh = self.mesh if submesh is None else submesh
+        lanes = 1 if mesh is None else mesh.size
+        if submesh is not None and self.slots % lanes:
+            raise ValueError(
+                f"slots={self.slots} not divisible by the {lanes}-device "
+                f"submesh group")
         cm = self._compile(bucket)
-        pin = self.device.type == "cuda"
+        slot_of = self._slot_layout(wave, lanes)
+        pin = (self.device.type == "cuda" if mesh is None
+               else any(d.type == "cuda" for d in mesh.devices))
         t0 = time.perf_counter()
         host = {name: torch.zeros((self.slots,)
                                   + self._input_shape(name, bucket),
                                   dtype=torch.float32, pin_memory=pin)
                 for name in self._input_names[bucket]}
         views = {name: buf.numpy() for name, buf in host.items()}
-        for slot, req in enumerate(wave):
+        for req, slot in zip(wave, slot_of):
             self._fill_slot(req, {name: buf[slot]
                                   for name, buf in views.items()})
         t1 = time.perf_counter()
-        batched = {name: buf.to(self.device, non_blocking=True)
-                   for name, buf in host.items()}
+        batched = host
+        if mesh is None:
+            batched = {name: buf.to(self.device, non_blocking=True)
+                       for name, buf in host.items()}
         t2 = time.perf_counter()
-        pending = self.executor.launch_batch(cm, self.weights, batched)
+        pending = self.executor.launch_batch(cm, self.weights, batched,
+                                             mesh=mesh)
         index = self.waves
         self.waves += 1
-        return InFlightWave(bucket=bucket, wave=list(wave), pending=pending,
+        return InFlightWave(bucket=bucket, wave=list(wave), slot_of=slot_of,
+                            pending=pending,
                             final=cm.graph.kernels[-1].out, index=index,
                             gather_seconds=t1 - t0, copy_seconds=t2 - t1)
 
     def finish_wave(self, inflight: InFlightWave) -> List[GraphResult]:
         """Block on a :meth:`begin_wave` launch, record the serving
         counters, stamp the wave report and slice per-request results back
-        out (wave order)."""
+        out of their slots (wave order)."""
         outs, rep = self.executor.finish_batch(inflight.pending)
         rep.wave_real = len(inflight.wave)
         rep.gather_seconds = inflight.gather_seconds
-        rep.copy_seconds = inflight.copy_seconds
+        rep.copy_seconds += inflight.copy_seconds
         self.last_wave_report = rep
         arr = outs[inflight.final].cpu().numpy()
         results = [GraphResult(req.request_id, arr[slot, : req.n_vertices],
                                inflight.bucket, inflight.index)
-                   for slot, req in enumerate(inflight.wave)]
+                   for slot, req in zip(inflight.slot_of, inflight.wave)]
         self.served += len(inflight.wave)
         self.wave_walls.append(rep.fused_wall_seconds)
         self.wave_loads.append((len(inflight.wave), self.slots))
         self.bucket_walls.setdefault(inflight.bucket, []).append(
+            rep.fused_wall_seconds)
+        self.group_walls.setdefault(inflight.pending.lanes, []).append(
             rep.fused_wall_seconds)
         return results
 

@@ -1,6 +1,6 @@
 """Continuous deadline-aware GNN serving: queue -> cut -> pack -> stream.
 
-Port of ``repro.serving.scheduler`` on one device.  The batched
+Port of ``repro.serving.scheduler``.  The batched
 :class:`~repro_torch.serving.graph_engine.GraphServeEngine` serves a
 *synchronous* batch: every request is present up front and results come
 back when the whole batch is done.  A deployed GNN service sees requests
@@ -50,8 +50,8 @@ their wave completes.  :class:`ContinuousGraphServer` is that online layer:
 None of this touches numerics: admitted results are bitwise
 ``GraphServeEngine.run_naive``'s whatever the priorities, deadlines,
 arrival order or clock.  The clock is injectable (``clock=``, default
-``time.monotonic``).  The server runs on whatever device its engine has;
-it reaches the device only through ``begin_wave``/``finish_wave``.
+``time.monotonic``).  The server runs on whatever devices its engine has;
+it reaches them only through ``begin_wave``/``finish_wave``.
 
 * **Giant-graph queries.**  With a ``minibatch=`` planner
   (``serving.minibatch.MiniBatchPlanner``),
@@ -62,8 +62,15 @@ it reaches the device only through ``begin_wave``/``finish_wave``.
   back to the waiting queries.  :meth:`~ContinuousGraphServer.apply_delta`
   streams edge deltas into the graph mid-stream.
 
-Not ported yet: multi-device lanes (``resize``, ``autoscale``,
-``plan_groups``, ``plan_lanes``; ``ROADMAP.md`` queue 1 item 4).
+* **Multi-device lanes.**  On an engine with a ``cores`` mesh the lanes
+  default to one per device.  ``resize=True`` makes them DISJOINT device
+  groups, replanned every tick from the queue (:func:`plan_groups`): a
+  heavy wave takes a wide group while light waves take one device each,
+  each wave running on its group alone (``begin_wave(submesh=...)``),
+  at most one in flight per group.  Walls are then also tracked per group
+  SIZE, and the wait bound packs over the planned groups.
+  ``autoscale=True`` re-picks the number of groups every tick
+  (:func:`plan_lanes`).
 """
 from __future__ import annotations
 
@@ -75,10 +82,96 @@ import numpy as np
 
 from repro_torch.core import perf_model
 from repro_torch.core import scheduler as core_scheduler
+from repro_torch.distributed import sharding
 from repro_torch.serving.config import UNSET, ServeConfig, merge_config
 from repro_torch.serving.graph_engine import (GraphRequest, GraphResult,
                                               GraphServeEngine)
 from repro_torch.serving.minibatch import DeltaReport, QueryTicket
+
+
+def plan_groups(n_devices: int, demands: Sequence[float], slots: int,
+                max_groups: Optional[int] = None) -> List[int]:
+    """Disjoint device-group sizes for one dispatch tick.
+
+    Given ``n_devices`` mesh devices, the estimated walls of the waves
+    wanting to run (``demands``) and the engine's wave ``slots``, returns
+    group sizes for ``sharding.partition_mesh``: each positive, dividing
+    ``slots`` (a wave's slots split evenly over its group), summing to
+    ``n_devices``.
+
+    The first ``k = min(len(demands), n_devices, max_groups)`` entries are
+    the demand-assigned groups, aligned with ``demands`` sorted descending
+    (largest demand <-> widest group); trailing 1s are devices left idle
+    this tick.  Groups start at one device each, and the group with the
+    highest remaining demand/size ratio doubles while spare devices
+    allow: a lone heavy wave takes the whole mesh, many light waves one
+    device each."""
+    if n_devices < 1:
+        raise ValueError(f"plan_groups over {n_devices} devices")
+    if slots < 1:
+        raise ValueError(f"plan_groups with {slots} wave slots")
+    dem = [float(x) for x in demands]
+    if not dem:
+        raise ValueError("plan_groups with no demands")
+    if any(x < 0 for x in dem):
+        raise ValueError(f"negative demand in {demands}")
+    k = min(len(dem), n_devices)
+    if max_groups is not None:
+        if max_groups < 1:
+            raise ValueError(f"max_groups {max_groups} < 1")
+        k = min(k, max_groups)
+    dem = sorted(dem, reverse=True)[:k]
+    sizes = [1] * k
+    spare = n_devices - k
+    while spare > 0:
+        best, best_ratio = -1, -1.0
+        for i in range(k):
+            doubled = sizes[i] * 2
+            if sizes[i] > spare:           # doubling adds sizes[i] devices
+                continue
+            if doubled > slots or slots % doubled:
+                continue                   # a group must divide the slots
+            ratio = dem[i] / sizes[i]
+            if ratio > best_ratio:
+                best, best_ratio = i, ratio
+        if best < 0:
+            break
+        spare -= sizes[best]
+        sizes[best] *= 2
+    # greedy by ratio keeps the sizes descending beside the sorted demands
+    # (equal sizes tie toward the larger demand)
+    return sizes + [1] * spare
+
+
+def plan_lanes(n_devices: int, demands: Sequence[float], slots: int,
+               max_lanes: int,
+               size_wall: Optional[Callable[[int], float]] = None) -> int:
+    """The number of groups whose :func:`plan_groups` split finishes first.
+
+    For each candidate count ``k`` up to ``max_lanes``, plan the group
+    sizes and pack the ``demands`` (estimated wave walls) longest first
+    over the ``k`` groups, each wave costed at no less than its group's
+    per-size wall ``size_wall(size)`` (``None``: no floor); return the
+    ``k`` of the smallest predicted finish.  Ties prefer MORE groups, so
+    a backlog of light waves spreads out while a lone heavy wave takes
+    one full-mesh group."""
+    if max_lanes < 1:
+        raise ValueError(f"max_lanes {max_lanes} < 1")
+    dem = sorted((float(x) for x in demands), reverse=True)
+    if not dem:
+        raise ValueError("plan_lanes with no demands")
+    best_k, best_t = 1, math.inf
+    for k in range(1, min(len(dem), n_devices, max_lanes) + 1):
+        sizes = plan_groups(n_devices, dem, slots, max_groups=k)
+        finish = [0.0] * k
+        for c in dem:
+            g = min(range(k), key=lambda j: (finish[j], j))
+            floor = size_wall(sizes[g]) if size_wall is not None else 0.0
+            finish[g] += max(c, floor)
+        t = max(finish)
+        if t <= best_t + 1e-12:
+            best_k, best_t = k, min(t, best_t)
+    return best_k
 
 
 class Ticket(int):
@@ -195,6 +288,7 @@ class WaveLog:
     cut_at: float                   # clock time the cut decision was made
     wall: float                     # launch-to-ready wall (engine-measured)
     lane: int = 0                   # dispatch lane the wave was pulled by
+    group_size: int = 1             # devices the wave ran on
     classes: Dict[int, int] = dataclasses.field(default_factory=dict)
     #                                 priority -> real-request count
 
@@ -235,13 +329,21 @@ class ContinuousGraphServer:
       ``max_wait`` age cut, or :meth:`drain`), or shed and logged in
       ``shed_log``;
     * results are bitwise ``engine.run_naive``'s on the same requests, and
-      ``engine.executor.trace_count`` grows by at most one per bucket;
+      ``engine.executor.trace_count`` grows by at most one per bucket (per
+      (bucket, group size) under ``resize=True``);
     * within one :meth:`poll`, cut waves dispatch urgent cuts first, then
       in weighted LPT order over the EWMA estimates, each pulled by the
       earliest-idle of the ``n_lanes`` lanes, with at most
       ``pipeline_depth`` waves in flight;
     * ``dispatch_log`` records every wave (bucket, real slots, cut reason,
-      cut time, measured wall, lane, class composition).
+      cut time, measured wall, lane, group size, class composition).
+
+    ``resize=True`` (an engine with a mesh) switches the lanes from slot
+    ranges of one shared mesh to DISJOINT device groups, replanned between
+    waves by :func:`plan_groups` (:meth:`_dispatch_groups`).  Walls are
+    also tracked per group SIZE (:meth:`group_estimate`), the wait bound
+    packs over the planned groups, and ``n_lanes=1`` always plans the one
+    full-mesh group: the shared-mesh single lane, exactly.
 
     The knobs form a :class:`ServeConfig` (``config=`` /
     :meth:`from_config`; the resolved config is ``self.config``), merged
@@ -257,20 +359,26 @@ class ContinuousGraphServer:
                  batch_patience: float = UNSET,
                  max_wait: float = UNSET,
                  n_lanes: Optional[int] = UNSET,
+                 resize: bool = UNSET,
                  shed: str = UNSET,
                  admit_margin: float = UNSET,
                  max_pending: Optional[int] = UNSET,
                  pressure_threshold: float = UNSET,
                  priority_weight: float = UNSET,
+                 autoscale: bool = UNSET,
                  minibatch=UNSET):
         cfg = merge_config(ServeConfig, config, dict(
             clock=clock, ewma_alpha=ewma_alpha,
             cold_start_wall=cold_start_wall, slack_margin=slack_margin,
             batch_patience=batch_patience, max_wait=max_wait,
-            n_lanes=n_lanes, shed=shed, admit_margin=admit_margin,
-            max_pending=max_pending, pressure_threshold=pressure_threshold,
-            priority_weight=priority_weight,
+            n_lanes=n_lanes, resize=resize, shed=shed,
+            admit_margin=admit_margin, max_pending=max_pending,
+            pressure_threshold=pressure_threshold,
+            priority_weight=priority_weight, autoscale=autoscale,
             minibatch=minibatch)).validate()
+        if cfg.resize and engine.mesh is None:
+            raise ValueError(
+                "resize=True needs an engine with a cores mesh to partition")
         self.config = cfg
         self.engine = engine
         self.clock = cfg.clock
@@ -284,8 +392,18 @@ class ContinuousGraphServer:
         self.max_pending = cfg.max_pending
         self.pressure_threshold = cfg.pressure_threshold
         self.priority_weight = cfg.priority_weight
-        # one lane per device by default; the engine runs on one device
-        self.n_lanes = 1 if cfg.n_lanes is None else int(cfg.n_lanes)
+        # one lane per device of the engine's mesh by default (1 unsharded)
+        self.n_lanes = (engine.lanes if cfg.n_lanes is None
+                        else int(cfg.n_lanes))
+        # resize mode: the lanes are disjoint device groups of the mesh,
+        # replanned every tick (plan_groups), with per-group-SIZE EWMA
+        # walls seeded from the engine's group_walls
+        self._resize = bool(cfg.resize)
+        self._autoscale = bool(cfg.autoscale)
+        self.n_devices = engine.lanes
+        self._group_ewma: Dict[int, _EwmaWall] = {}
+        self.last_group_sizes: List[int] = []
+        self.last_auto_lanes: Optional[int] = None
         self._queues: Dict[int, List[QueuedRequest]] = {}
         self._ewma: Dict[int, _EwmaWall] = {}
         # per-lane EWMA of the walls of the waves each lane pulled; the
@@ -557,12 +675,31 @@ class ContinuousGraphServer:
         """Current EWMA wall (seconds) of the waves ``lane`` has pulled."""
         return self._lane_ewma[lane].value
 
+    def group_estimate(self, size: int) -> float:
+        """Current EWMA wall (seconds) of the waves run on a ``size``-device
+        group (resize mode)."""
+        return self._size_wall(size).value
+
+    def _size_wall(self, size: int) -> _EwmaWall:
+        est = self._group_ewma.get(size)
+        if est is None:
+            own = self.engine.group_walls.get(size)
+            seed = float(np.min(own)) if own else None
+            est = _EwmaWall(self.ewma_alpha, seed, self.cold_start_wall)
+            self._group_ewma[size] = est
+        return est
+
     @property
     def pipeline_depth(self) -> int:
-        """Waves kept in flight at once: ``min(n_lanes, 2)``.  Lanes share
-        one device; two waves in flight let one wave's host gather overlap
-        the other's device work, and deeper queues only pile work onto the
-        same device.  ``wait_bound`` packs over this same depth."""
+        """Waves kept in flight at once.  Lanes of a shared mesh: ``min(
+        n_lanes, 2)`` -- two waves in flight let one wave's host gather
+        overlap the other's device work, and deeper queues only pile work
+        onto the same devices.  Resize mode: ``n_lanes``, since disjoint
+        groups are separate devices and ``_dispatch_groups`` keeps at most
+        one wave in flight per group.  ``wait_bound`` packs over this same
+        depth."""
+        if self._resize:
+            return self.n_lanes
         return min(self.n_lanes, 2)
 
     # -- wave cutting -------------------------------------------------------
@@ -583,9 +720,24 @@ class ContinuousGraphServer:
         walls: the serial sum with one lane; else the LPT makespan over
         ``pipeline_depth`` with each wave floored by the average per-lane
         EWMA wall (lane walls are launch -> ready, so waves that contend
-        inflate them and the bound returns toward the serial sum)."""
+        inflate them and the bound returns toward the serial sum).  Resize
+        mode: longest first over the groups :func:`plan_groups` would cut
+        now, each wave floored by its group's per-size EWMA wall (one
+        group: the serial sum)."""
         if not costs:
             return 0.0
+        if self._resize:
+            k = min(len(costs), self.n_devices, self.n_lanes)
+            if k == 1:
+                return float(sum(costs))
+            sizes = plan_groups(self.n_devices,
+                                sorted(costs, reverse=True),
+                                self.engine.slots, max_groups=self.n_lanes)
+            finish = [0.0] * k
+            for c in sorted(costs, reverse=True):
+                g = min(range(k), key=lambda j: (finish[j], j))
+                finish[g] += max(c, self._size_wall(sizes[g]).value)
+            return max(finish)
         if self.n_lanes == 1:
             return float(sum(costs))
         lane_wall = float(np.mean([e.value for e in self._lane_ewma]))
@@ -800,7 +952,10 @@ class ContinuousGraphServer:
         the bucket's and the lane's EWMA, the cost calibration and the
         occupancy, and the marginal cut -> delivery wall feeds the
         admission floor.  One lane is the serial launch-then-finish loop.
+        Resize mode goes to :meth:`_dispatch_groups`.
         """
+        if self._resize:
+            return self._dispatch_groups(ready)
         # start from results stranded by a failed tick; harvest appends to
         # this same list, so if THIS tick fails, everything harvested stays
         # in _undelivered for the next tick
@@ -829,6 +984,7 @@ class ContinuousGraphServer:
             prev_done[0] = done_at
             self.dispatch_log.append(WaveLog(
                 handle.bucket, len(wave), reason, cut_at, wall, lane,
+                group_size=handle.pending.lanes,
                 classes=self._wave_classes(wave)))
             self.dispatched += len(wave)
             for entry, res in zip(wave, wave_results):
@@ -865,18 +1021,131 @@ class ContinuousGraphServer:
         self._undelivered = []
         return results
 
+    def _dispatch_groups(self, ready: List[tuple]) -> List[GraphResult]:
+        """Resize-mode dispatch: disjoint device groups, replanned every
+        tick from the waves cut.
+
+        The tick's waves are costed by their bucket EWMA estimates and
+        handed to :func:`plan_groups` (under ``autoscale``, with the group
+        count of :func:`plan_lanes`): the i-th largest wave pairs with the
+        i-th widest group, and further waves go to the earliest-finishing
+        group (the packing ``wait_bound`` models).  Each wave runs through
+        ``begin_wave(submesh=...)`` on its group alone, at most one in
+        flight per group (a group's next wave first harvests its previous
+        one).  Walls feed the bucket EWMA and the group-SIZE EWMA;
+        ``dispatch_log`` records the group index and width,
+        ``last_group_sizes`` the tick's plan."""
+        results = self._undelivered
+        packed = self._pack_order(ready)
+        if not packed:
+            self._undelivered = []
+            return results
+        ests = [self.estimate(bucket) for bucket, _, _, _ in packed]
+        max_lanes = self.n_lanes
+        if self._autoscale:
+            max_lanes = plan_lanes(self.n_devices, ests, self.engine.slots,
+                                   self.n_lanes,
+                                   size_wall=self.group_estimate)
+            self.last_auto_lanes = max_lanes
+        sizes = plan_groups(self.n_devices, sorted(ests, reverse=True),
+                            self.engine.slots, max_groups=max_lanes)
+        groups = sharding.partition_mesh(self.engine.mesh, sizes)
+        self.last_group_sizes = list(sizes)
+        k = min(len(packed), self.n_devices, max_lanes)
+        # wave -> group: waves by descending estimate take the
+        # earliest-finishing of the k demand-assigned groups (ties toward
+        # the wider group), so the first k get distinct groups, largest
+        # with largest, and the rest pile onto whichever frees up first
+        group_busy = [0.0] * k
+        assign: Dict[int, int] = {}
+        for i in sorted(range(len(packed)), key=lambda i: (-ests[i], i)):
+            g = min(range(k), key=lambda j: (group_busy[j], j))
+            group_busy[g] += max(ests[i], self._size_wall(sizes[g]).value)
+            assign[i] = g
+        in_flight: Dict[int, tuple] = {}    # group -> (wave-entries,
+        #                                      reason, cut_at, InFlightWave)
+        prev_done = [None]                 # last harvest time THIS tick
+
+        def harvest(g: int) -> None:
+            wave, reason, cut_at, handle = in_flight.pop(g)
+            wave_results = self.engine.finish_wave(handle)
+            done_at = self.clock()
+            wall = self.engine.bucket_walls[handle.bucket][-1]
+            self._ewma_for(handle.bucket).observe(wall)
+            self._size_wall(handle.pending.lanes).observe(wall)
+            self._calib.observe(sum(e.cost for e in wave), wall)
+            self._occupancy.observe(len(wave))
+            # marginal wall-clock, as in _dispatch
+            start = (cut_at if prev_done[0] is None
+                     else max(cut_at, prev_done[0]))
+            self._wave_floor.observe(done_at - start)
+            prev_done[0] = done_at
+            self.dispatch_log.append(WaveLog(
+                handle.bucket, len(wave), reason, cut_at, wall, g,
+                group_size=handle.pending.lanes,
+                classes=self._wave_classes(wave)))
+            self.dispatched += len(wave)
+            for entry, res in zip(wave, wave_results):
+                res.deadline = entry.deadline
+                res.completed_at = done_at
+                self._account_delivery(entry, done_at)
+                results.append(res)
+
+        try:
+            for i, (bucket, wave, reason, cut_at) in enumerate(packed):
+                # last-moment doomed check (see _dispatch)
+                wave = self._shed_doomed(bucket, wave, self.clock())
+                if not wave:
+                    continue
+                g = assign[i]
+                if g in in_flight:          # one wave per group at a time
+                    harvest(g)
+                handle = self.engine.begin_wave(
+                    bucket, [e.request for e in wave], submesh=groups[g])
+                in_flight[g] = (wave, reason, cut_at, handle)
+        finally:
+            # as in _dispatch: a begin_wave failure must not abandon the
+            # waves in flight
+            while in_flight:
+                harvest(min(in_flight))
+        self._undelivered = []
+        return results
+
     # -- warmup -------------------------------------------------------------
     def warmup(self, sizes: Sequence[int]) -> None:
         """Build the walk plans of the buckets of ``sizes`` vertex counts
         before traffic: two dummy single-request waves per NEW bucket, so
         the first real request does not pay the plan, and the EWMA seeds
         from a steady-state wall (the second; ``_ewma_for`` takes the
-        minimum)."""
+        minimum).
+
+        Resize mode also runs every device-group placement the plan can
+        reach, for every bucket of ``sizes`` (served before or not), twice
+        each: a group size's walk plan is built once, but each group's
+        devices get their copy of the weights and its profile, and the
+        ``group_walls`` minimum that seeds :meth:`group_estimate` is a
+        steady-state wall."""
         req = GraphRequest(np.eye(2, dtype=np.float32),
                            np.zeros((2, self.engine.f_in), np.float32),
                            request_id=-1)
-        for n in sorted({self.engine.bucket_for(int(s)) for s in sizes}):
+        buckets = sorted({self.engine.bucket_for(int(s)) for s in sizes})
+        for n in buckets:
             if n in self.engine.bucket_walls:
                 continue
             self.engine.dispatch_wave(n, [req])
             self.engine.dispatch_wave(n, [req])
+        if not self._resize:
+            return
+        size = 1
+        while size <= self.n_devices:
+            if self.engine.slots % size == 0:
+                n_groups = self.n_devices // size
+                part = ([size] * n_groups
+                        + [1] * (self.n_devices - size * n_groups))
+                subs = sharding.partition_mesh(self.engine.mesh, part)
+                for sub in subs[:n_groups]:
+                    for n in buckets:
+                        for _ in range(2):
+                            self.engine.finish_wave(self.engine.begin_wave(
+                                n, [req], submesh=sub))
+            size *= 2

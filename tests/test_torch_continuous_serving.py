@@ -144,11 +144,9 @@ def test_cost_calibration_matches_the_reference():
 def test_serve_config_keeps_the_reference_fields_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(j_cfg.ServeConfig)}
     port = {f.name: f.default for f in dataclasses.fields(t_cfg.ServeConfig)}
-    # nothing in the port reads these yet: multi-device lanes come in a
-    # later slice
-    assert ref.pop("resize") is False and ref.pop("autoscale") is False
     assert port == ref
     assert port["minibatch"] is None
+    assert port["resize"] is False and port["autoscale"] is False
 
 
 @pytest.mark.parametrize("bad", [
@@ -157,7 +155,7 @@ def test_serve_config_keeps_the_reference_fields_and_defaults():
     dict(max_wait=-1.0), dict(n_lanes=0), dict(shed="sometimes"),
     dict(shed="capacity"), dict(shed="capacity", max_pending=0),
     dict(admit_margin=0.5), dict(pressure_threshold=0.0),
-    dict(priority_weight=0.0)])
+    dict(priority_weight=0.0), dict(autoscale=True)])
 def test_serve_config_validate_errors_match_the_reference(bad):
     with pytest.raises(ValueError) as want:
         j_cfg.ServeConfig(**bad).validate()

@@ -377,9 +377,10 @@ def test_engine_config_keeps_the_reference_fields_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(j_cfg.EngineConfig)}
     port = {f.name: f.default for f in dataclasses.fields(t_cfg.EngineConfig)}
     assert port.pop("device") is None
-    # nothing in the port reads these: sharded waves come in a later slice
-    assert ref.pop("donate") is True and ref.pop("mesh") is None
-    assert port == ref
+    # donate is an XLA buffer-donation hint: a torch walk has nothing to
+    # alias, and it never changed results
+    assert ref.pop("donate") is True
+    assert port == ref and port["mesh"] is None
 
 
 def test_engine_from_config_round_trips():

@@ -145,3 +145,27 @@ def test_simulator_slice_imports_no_jax(module, names):
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_the_distributed_package_is_covered():
+    mods = _port_modules()
+    assert {"repro_torch.distributed",
+            "repro_torch.distributed.sharding"} <= set(mods)
+
+
+def test_a_mesh_of_cards_needs_the_cards():
+    """A mesh of CUDA devices without them raises, as the reference's
+    ``cores_mesh`` does past the visible devices; emulated lanes on the
+    CPU are asked for by name."""
+    from repro_torch.distributed import sharding
+
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="devices visible"):
+        sharding.cores_mesh(visible + 1)
+    with pytest.raises(ValueError, match="devices visible"):
+        sharding.cores_mesh(0)
+    assert sharding.cores_mesh(3, device="cpu").size == 3
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharding.cores_mesh(2, device="cuda")

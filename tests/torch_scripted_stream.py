@@ -49,9 +49,9 @@ def stream_clock() -> FakeClock:
 
 
 def script_walls(eng, clk) -> None:
-    """Overwrite each finished wave's launch-to-ready wall with a scripted
-    one (per bucket, cycling over three values) and advance the clock by
-    it, so servers on different engines see the same walls and the same
+    """Overwrite each finished wave's launch-to-ready wall (in the
+    engine's bucket, wave and group-size records) with a scripted one (per
+    bucket, cycling over three values) and advance the clock by it, so servers on different engines see the same walls and the same
     time.  ``del eng.finish_wave`` takes the wrapper off."""
     real = eng.finish_wave
     count = {}
@@ -62,6 +62,7 @@ def script_walls(eng, clk) -> None:
         wall = inflight.bucket * 1.25e-4 * (1.0 + 0.25 * (k % 3))
         eng.bucket_walls[inflight.bucket][-1] = wall
         eng.wave_walls[-1] = wall
+        eng.group_walls[inflight.pending.lanes][-1] = wall
         clk.advance(wall)
         return out
 
