@@ -72,7 +72,19 @@ card at the shapes its path gives it, then drives the port's paths:
   128 prompt tokens + 16 new tokens with FFN weights pruned to density
   0.1, once with ``dynasparse_ffn`` (tile_nnz + dispatch at (256, 256,
   256)) and once dense; then the smoke config's dynasparse == dense
-  tokens and decode == full-forward logits on the card.
+  tokens and decode == full-forward logits on the card;
+* the LM families at full width (phase 10, random seeded weights):
+  deepseek-v2-lite-16b (27 layers: MLA, 64 routed + 2 shared experts
+  top-6, a dense-first layer of d_ff 10944; bf16, FFN and experts pruned
+  to 0.1) served by ``ServeEngine`` (4 slots, 4 requests of 64 + 8
+  tokens) with and without ``dynasparse_ffn``, ``dispatch`` checked and
+  timed at its dense-first (ragged N 10944) and shared-expert decode
+  shapes, decode against the full forward with a dropless MoE and every
+  MLA layer's absorbed decode against its plain one; one period of
+  jamba-v0.1-52b (8 layers, float32) and xlstm-125m (float32), each
+  decode against its full forward, jamba's dense FFNs on ``dispatch``;
+  whisper-large-v3 on 2 x 3000 stub frames, 8 greedy steps against
+  ``decoder_forward``; then the ten archs' smoke configs.
 
 bf16 operands run on the tensor-core routes of ``dispatch`` and
 ``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes
@@ -114,6 +126,7 @@ references.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -879,6 +892,9 @@ def main() -> int:
     # ---------------- phases 7-9: the LM paths (llama3.2-1b) --------------
     lm_counts = lm_paths(torch, np, K, dev, card, A, kernel_entry,
                          small_checks)
+
+    # ---------------- phase 10: the LM families --------------------------
+    lm_families_phase(torch, np, K, dev, card, kernel_entry)
 
     kernels_line["gemm"]["launches"] = main_counts["gemm"]
     kernels_line["spdmm"]["launches"] = main_counts["spdmm"]
@@ -3061,7 +3077,10 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
     t0 = time.perf_counter()
     score_bundle = model_zoo.build(flash_cfg, device=dev)
     params = score_bundle.init_params(0)
-    pruned = prune_ffn(params, SERVE_DENSITY)
+    # scoring reads the unpruned weights, serving the pruned copy of the FFN
+    pruned = prune_ffn({**params, "layers": [
+        {**lp, "ffn": {k: w.clone() for k, w in lp["ffn"].items()}}
+        for lp in params["layers"]]}, SERVE_DENSITY, period=cfg.layer_period)
     torch.cuda.synchronize()
     record("lm_bundle", arch=cfg.name, n_layers=cfg.n_layers,
            d_model=cfg.d_model, n_heads=cfg.n_heads,
@@ -3389,7 +3408,8 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
     # ---------------- phase 9b: the smoke config's invariants on the card -
     small = smoke_config(LM_ARCH, n_layers=2)
     sb = model_zoo.build(small, device=dev)
-    sp = prune_ffn(sb.init_params(0), SERVE_DENSITY)
+    sp = prune_ffn(sb.init_params(0), SERVE_DENSITY,
+                   period=small.layer_period)
     sb_ds = model_zoo.build(replace(small, dynasparse_ffn=True), device=dev)
     srng = np.random.default_rng(2)
     sreqs = [Request(srng.integers(0, small.vocab_size, 8).astype(np.int32),
@@ -3423,6 +3443,579 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
            tokens=[r.tokens.tolist() for r in r_ds],
            decode_vs_full_forward_rel=decode_rel, launches=small_counts)
     return counts
+
+
+# phase 10: the LM layer kinds (MoE, MLA, mamba, xLSTM, encoder-decoder)
+# at full width, each model freed before the next
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_REQUESTS, DS_PROMPT, DS_NEW, DS_SLOTS = 4, 64, 8, 4
+JAMBA_BATCH, JAMBA_PROMPT = 2, 256        # one period: n_layers 8
+XLSTM_BATCH, XLSTM_PROMPT = 2, 512
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT = 2, 3000, 64
+FAMILY_STEPS = 8                          # decode steps after each prefill
+
+
+def dropless(cfg):
+    """The MoE at capacity == group_size, the least capacity that drops no
+    choice (a group holds group_size tokens, each picks an expert once)."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def decode_vs_forward(torch, bundle, params, toks, n_prefill, head,
+                      around=None) -> list:
+    """Prefill ``toks[:, :n_prefill]``, then decode the rest one token a
+    step (teacher-forced); each step's logits against the full forward's
+    at the same position (``head(x)`` -> logits).  Returns the relative
+    errors, the prefill's first.  The context ``around`` is entered for
+    the prefill and the decode steps, not for the full forward."""
+    from repro_torch.models import transformer
+    cfg = bundle.cfg
+    with torch.inference_mode():
+        x, _, _ = transformer.forward(cfg, params, toks)
+        want = head(x[:, n_prefill - 1:])
+        del x
+        with around or contextlib.nullcontext():
+            got, caches = bundle.prefill(
+                params, {"tokens": toks[:, :n_prefill]},
+                max_seq=toks.shape[1])
+            rels = [rel_err(torch, got, want[:, 0])]
+            for i in range(n_prefill, toks.shape[1]):
+                got, caches = bundle.decode_step(params, caches,
+                                                 toks[:, i:i + 1], i)
+                rels.append(rel_err(torch, got, want[:, i - n_prefill + 1]))
+    return rels
+
+
+class ShapeCounter:
+    """Observes every ``dynasparse_matmul`` call (the FFN's ``_linear``):
+    its (x, w) shapes and the K2P codes it planned."""
+
+    def __init__(self, torch, dynasparse):
+        self.torch, self.mod = torch, dynasparse
+        self.planned = dynasparse.dynasparse_matmul
+        self.calls, self.hist = {}, [0, 0, 0, 0]
+
+    def __enter__(self):
+        def recording(x, w, *args, **kw):
+            res = self.planned(x, w, *args, **kw)
+            key = f"{tuple(x.shape)}x{tuple(w.shape)}"
+            self.calls[key] = self.calls.get(key, 0) + 1
+            h = self.torch.bincount(res.codes.flatten().long(), minlength=4)
+            self.hist = [a + int(b) for a, b in zip(self.hist, h.tolist())]
+            return res
+        self.mod.dynasparse_matmul = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dynasparse_matmul = self.planned
+
+
+class Routing:
+    """Observes the top-k choices of every MoE call (``layers.moe_route``),
+    in order: ``choices`` holds each call's (rows, k) experts.  Given
+    ``expect`` (one (n, k) tensor a call), ``flips`` holds, per call, the
+    tokens among the first n whose own choice set differs from the
+    expected one, and with ``pin`` each call takes the expected choices
+    instead of its own (the gate weights read off its own
+    probabilities)."""
+
+    def __init__(self, layers, expect=None, pin=False):
+        self.mod, self.pin = layers, pin
+        self.expect = None if expect is None else iter(expect)
+        self.route = layers.moe_route
+        self.choices, self.flips = [], []
+
+    def __enter__(self):
+        def routing(probs, k):
+            w, i = self.route(probs, k)
+            self.choices.append(i.reshape(-1, k))
+            if self.expect is None:
+                return w, i
+            want = next(self.expect)
+            n = want.shape[0]
+            own = i.reshape(-1, k)
+            self.flips.append(int((own[:n].sort(-1).values
+                                   != want.sort(-1).values).any(-1).sum()))
+            if not self.pin:
+                return w, i
+            idx = own.clone()
+            idx[:n] = want
+            idx = idx.reshape(i.shape)
+            return probs.gather(-1, idx), idx
+        self.mod.moe_route = routing
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_route = self.route
+
+
+def routed_decode_vs_forward(torch, layers, bundle, params, toks, n_prefill,
+                             head) -> dict:
+    """``decode_vs_forward`` of an MoE model, the MoE choices of its
+    prefill and of each decode step held against the full forward's at
+    the same positions: run free (``rel``, and ``flips``: per step, the
+    (token, MoE layer) choices that differ, the prefill's over its
+    positions first) and with every choice pinned to the forward's
+    (``pinned_rel``)."""
+    from repro_torch.models import transformer
+    b, s = toks.shape
+    k = bundle.cfg.moe.top_k
+    with torch.inference_mode(), Routing(layers) as fwd:
+        transformer.forward(bundle.cfg, params, toks)
+    per_pos = [c[:b * s].reshape(b, s, k) for c in fwd.choices]
+    expect = [c[:, :n_prefill].reshape(-1, k) for c in per_pos]
+    for p in range(n_prefill, s):
+        expect += [c[:, p] for c in per_pos]
+    out, n = {}, len(per_pos)
+    for pin in (False, True):
+        r = Routing(layers, expect, pin)
+        rels = decode_vs_forward(torch, bundle, params, toks, n_prefill,
+                                 head, around=r)
+        out["pinned_rel" if pin else "rel"] = rels
+        if not pin:
+            out["flips"] = [sum(r.flips[i * n:(i + 1) * n])
+                            for i in range(len(r.flips) // n)]
+    return out
+
+
+def lm_families_phase(torch, np, K, dev, card, kernel_entry) -> None:
+    """Phase 10: deepseek-v2-lite-16b served at full width (MoE, MLA,
+    dense-first layer), one period of jamba-v0.1-52b (mamba, attention,
+    MoE), xlstm-125m and whisper-large-v3 at full width, then the smoke
+    configs of all ten archs; each model's decode against its full
+    forward, the Dynasparse FFN's kernels launched on each path."""
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS, get_arch, smoke_config
+    from repro_torch.core import analyzer, dynasparse, profiler
+    from repro_torch.core.perf_model import TPUCostModel
+    from repro_torch.launch.serve import leaf_groups, prune_ffn, _get
+    from repro_torch.models import encdec, layers, model_zoo, transformer
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    replace = dataclasses.replace
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def make(cfg, seed, prune=True):
+        """Random params of ``cfg`` on the card, FFN leaves pruned (in
+        place) to SERVE_DENSITY; their density after the prune."""
+        params = model_zoo.build(cfg, device=dev).init_params(seed)
+        density = None
+        if prune:
+            prune_ffn(params, SERVE_DENSITY, period=cfg.layer_period)
+            ws = [_get(params[k][j], path)
+                  for g in leaf_groups(params, cfg.layer_period)
+                  for k, j, path in g]
+            density = float(sum(int(torch.count_nonzero(w)) for w in ws)
+                            / sum(w.numel() for w in ws))
+        torch.cuda.synchronize()
+        return params, density
+
+    def tokens_of(rng, vocab, b, s):
+        return torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+
+    # ---------------- (a) deepseek-v2-lite-16b, full width, served --------
+    t0 = fresh()
+    cfg = get_arch(DS_ARCH)
+    params, density = make(cfg, 0)
+    record("family_bundle", arch=cfg.name, n_layers=cfg.n_layers,
+           d_model=cfg.d_model, n_heads=cfg.n_heads, dtype=cfg.dtype,
+           experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+           shared=cfg.moe.n_shared, kv_lora_rank=cfg.mla.kv_lora_rank,
+           params=sum(t.numel() for t in leaves(params)),
+           ffn_density_after_prune=density,
+           param_bytes=torch.cuda.memory_allocated(),
+           seconds=time.perf_counter() - t0)
+    dense_b = model_zoo.build(cfg, device=dev)
+    ds_b = model_zoo.build(replace(cfg, dynasparse_ffn=True), device=dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, DS_PROMPT).astype(np.int32)
+               for _ in range(DS_REQUESTS)]
+    wave = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+
+    # dispatch at deepseek's decode shapes: the dense-first FFN (ragged N
+    # 10944 = 42.75 blocks of 256) and the shared experts (2 x 1408)
+    blk = layers.FFN_BLOCK
+    df = params["dense_first"][0]
+    sh = params["layers"][0]["ffn"]["shared"]
+    x = layers.rmsnorm(params["embed"][wave[:, -1]], df["ln2"]["scale"])
+    hid = F.silu(x @ df["ffn"]["w1"]) * (x @ df["ffn"]["w3"])
+    hid_s = F.silu(x @ sh["w1"]) * (x @ sh["w3"])
+    for label, xs, w in (("dense-first w1", x, df["ffn"]["w1"]),
+                         ("dense-first w2", hid, df["ffn"]["w2"]),
+                         ("shared experts w1", x, sh["w1"]),
+                         ("shared experts w2", hid_s, sh["w2"])):
+        codes = analyzer.plan_codes(
+            "dynamic", profiler.block_density(xs, blk[:2]),
+            profiler.block_density(w, blk[1:]), TPUCostModel())
+        kernel_entry(
+            f"dispatch (bf16, 256, decode {xs.shape[0]} rows, deepseek "
+            f"{label} {tuple(w.shape)})",
+            "src/repro_torch/kernels/csrc/dispatch.cu",
+            "src/repro/core/dynasparse.py:239",
+            lambda xs=xs, w=w, codes=codes:
+            K.dispatch.block_matmul(xs, w, codes, blk, pad_rows=False),
+            lambda xs=xs, w=w, codes=codes:
+            K.dispatch.block_matmul_plain(xs, w, codes, blk, pad_rows=False),
+            lambda xs=xs, w=w: torch.matmul(xs, w),
+            dispatch_work(torch, K, xs, w, codes, blk), lambda g, w: True,
+            tol=DISPATCH_BF16_TOL, peak=PEAK_BF16, line=False, units="mma",
+            lib_call="torch.matmul")
+        record("dispatch_codes", case=f"deepseek decode {label}",
+               rows=xs.shape[0], shape=list(w.shape),
+               histogram=torch.bincount(codes.flatten().long(),
+                                        minlength=4).tolist())
+    del x, hid, hid_s
+
+    reqs = [Request(p, max_new_tokens=DS_NEW, request_id=i)
+            for i, p in enumerate(prompts)]
+    engines = {name: ServeEngine(b_, params, slots=DS_SLOTS,
+                                 max_seq=DS_PROMPT + DS_NEW)
+               for name, b_ in (("dynasparse", ds_b), ("dense", dense_b))}
+    # each engine's first run is its warm-up, untimed; the dynasparse one
+    # is observed too (the shapes and K2P codes of its linear calls)
+    with ShapeCounter(torch, dynasparse) as seen:
+        K.reset_launch_counts()
+        res_ds = engines["dynasparse"].generate(reqs)
+        torch.cuda.synchronize()
+        serve_counts = K.launch_counts()
+    serve_hist = seen.hist
+    record("family_serve_launches", arch=cfg.name, counts=serve_counts,
+           linear_calls=seen.calls)
+    for name in ("dispatch", "tile_nnz"):
+        check(serve_counts[name] > 0, f"{cfg.name} serving never launched "
+              f"{name}")
+    check(sum(serve_hist) > 0 and serve_hist[1] < sum(serve_hist),
+          f"{cfg.name} dynasparse K2P histogram {serve_hist} is all GEMM")
+    res_dense = engines["dense"].generate(reqs)
+    walls = {}
+    for _ in range(3):
+        for name in ("dynasparse", "dense"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engines[name].generate(reqs)
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append(time.perf_counter() - t)
+    agree_tok = float(np.mean([np.mean(a.tokens == b_.tokens)
+                               for a, b_ in zip(res_ds, res_dense)]))
+    with torch.inference_mode():
+        first = {name: b_.prefill(params, {"tokens": wave},
+                                  max_seq=DS_PROMPT + DS_NEW)
+                 for name, b_ in (("dynasparse", ds_b), ("dense", dense_b))}
+        first_rel = rel_err(torch, first["dynasparse"][0],
+                            first["dense"][0])
+        caches = first["dynasparse"][1]
+        del first
+        step = torch.from_numpy(np.array([[int(r.tokens[0])] for r in
+                                          res_ds])).to(dev)
+        launches = {}
+        for what, fn in (
+                ("prefill", lambda: ds_b.prefill(
+                    params, {"tokens": wave}, max_seq=DS_PROMPT + DS_NEW)),
+                ("decode_step", lambda: ds_b.decode_step(
+                    params, caches, step, DS_PROMPT))):
+            with ShapeCounter(torch, dynasparse) as seen:
+                K.reset_launch_counts()
+                fn()
+                torch.cuda.synchronize()
+                launches[what] = {"kernels": K.launch_counts(),
+                                  "linear_calls": seen.calls}
+        prof = profile_device(torch, lambda: ds_b.decode_step(
+            params, caches, step, DS_PROMPT))
+        dense_prof = profile_device(torch, lambda: dense_b.decode_step(
+            params, caches, step, DS_PROMPT))
+        del caches
+    check(first_rel < LM_REL,
+          f"{cfg.name} first-step logits dynasparse vs dense rel {first_rel}")
+    n_tok = DS_REQUESTS * DS_NEW
+    for name, ts in walls.items():
+        ms = statistics.median(ts) * 1e3
+        record("wall", path="lm_family_serve", arch=cfg.name, engine=name,
+               median_ms=ms, runs_ms=[t_ * 1e3 for t_ in ts], tokens=n_tok,
+               tokens_per_s=n_tok / (ms / 1e3), card=card)
+    record("profile", path="lm_family_serve", arch=cfg.name,
+           engine="dynasparse", what=f"one decode step ({DS_SLOTS} slots)",
+           card=card, **prof)
+    record("profile", path="lm_family_serve", arch=cfg.name, engine="dense",
+           what=f"one decode step ({DS_SLOTS} slots)", card=card,
+           **dense_prof)
+
+    # decode against the full forward, dropless; and every MLA layer's
+    # absorbed decode against its non-absorbed decode, on the same input
+    # and a copy of the same latent cache
+    dl = dropless(cfg)
+    dl_b = model_zoo.build(dl, device=dev)
+    head = lambda h: h @ transformer.lm_head(dl, params).T  # noqa: E731
+    n_pre = DS_PROMPT - FAMILY_STEPS
+    mla = transformer.mla_attention
+    abs_rels = []
+
+    def both_forms(x, p, cfg_, *, positions, cache, pos, absorbed):
+        if cache is None or x.shape[1] != 1:
+            return mla(x, p, cfg_, positions=positions, cache=cache,
+                       pos=pos, absorbed=absorbed)
+        copy = {k: v.clone() for k, v in cache.items()}
+        alt, _ = mla(x, p, cfg_, positions=positions, cache=copy, pos=pos,
+                     absorbed=not absorbed)
+        out, cache = mla(x, p, cfg_, positions=positions, cache=cache,
+                         pos=pos, absorbed=absorbed)
+        abs_rels.append(rel_err(torch, alt, out))
+        return out, cache
+
+    transformer.mla_attention = both_forms
+    try:
+        fwd_rels = decode_vs_forward(torch, dl_b, params, wave, n_pre, head)
+    finally:
+        transformer.mla_attention = mla
+    check(len(abs_rels) == FAMILY_STEPS * cfg.n_layers,
+          f"{len(abs_rels)} MLA decode comparisons")
+    check(max(fwd_rels) < LM_REL, f"{cfg.name} decode vs full forward rel "
+          f"{fwd_rels}")
+    check(max(abs_rels) < LM_REL, f"{cfg.name} MLA absorbed vs non-absorbed "
+          f"decode rel {max(abs_rels)}")
+    record("lm_family", arch=cfg.name, requests=DS_REQUESTS,
+           prompt=DS_PROMPT, new_tokens=DS_NEW, slots=DS_SLOTS,
+           ffn_density=SERVE_DENSITY,
+           k2p_histogram_skip_gemm_spdmm_spmm=serve_hist,
+           first_step_logits_rel_err=first_rel,
+           token_agreement_dynasparse_vs_dense=agree_tok,
+           launches_per_prefill=launches["prefill"],
+           launches_per_decode_step=launches["decode_step"],
+           decode_vs_forward_rel=fwd_rels, dropless_capacity_factor=(
+               dl.moe.capacity_factor),
+           mla_absorbed_vs_plain_decode_rel_max=max(abs_rels),
+           mla_absorbed_vs_plain_decode_rel_median=statistics.median(
+               abs_rels),
+           peak_memory_bytes=torch.cuda.max_memory_allocated(),
+           seconds=time.perf_counter() - t0, card=card)
+    del params, engines, dense_b, ds_b, dl_b, res_ds, res_dense
+
+    # ---------------- (b) jamba-v0.1-52b, one period at full width --------
+    # float32 (53 GB, unpruned) holds decode to the full forward; bf16 (the
+    # config's, 26 GB, FFNs pruned) is served dynasparse against dense and
+    # decoded with its MoE choices held against the full forward's
+    t0 = fresh()
+    cfg = dropless(replace(get_arch("jamba-v0.1-52b"), n_layers=8,
+                           dtype="float32"))
+    params, _ = make(cfg, 1, prune=False)
+    b_ = model_zoo.build(cfg, device=dev)
+    rng = np.random.default_rng(6)
+    toks = tokens_of(rng, cfg.vocab_size, JAMBA_BATCH,
+                     JAMBA_PROMPT + FAMILY_STEPS)
+    head = lambda h: h @ transformer.lm_head(cfg, params).T  # noqa: E731
+    rels = decode_vs_forward(torch, b_, params, toks, JAMBA_PROMPT, head)
+    check(max(rels) < LM_REL, f"{cfg.name} float32 decode vs full forward "
+          f"{rels}")
+    f32 = {"decode_vs_forward_rel": rels,
+           "params": sum(t.numel() for t in leaves(params)),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t0}
+    del params, b_
+
+    t1 = fresh()
+    cfg = replace(cfg, dtype=get_arch("jamba-v0.1-52b").dtype)
+    params, density = make(cfg, 1)
+    b_ = model_zoo.build(cfg, device=dev)
+    ds = model_zoo.build(replace(cfg, dynasparse_ffn=True), device=dev)
+    head = lambda h: h @ transformer.lm_head(cfg, params).T  # noqa: E731
+    routed = routed_decode_vs_forward(torch, layers, b_, params, toks,
+                                      JAMBA_PROMPT, head)
+    check(max(routed["pinned_rel"]) < LM_REL, f"{cfg.name} bf16 decode vs "
+          f"full forward, MoE choices pinned to the forward's: {routed}")
+    prompt = {"tokens": toks[:, :JAMBA_PROMPT]}
+    routes = {"mma": K.dispatch._block_matmul_mma,
+              "fma": K.dispatch._block_matmul_fma}
+    route_calls = {"mma": 0, "fma": 0}
+
+    def counted(name):
+        def call(*a):
+            route_calls[name] += 1
+            return routes[name](*a)
+        return call
+    with torch.inference_mode():
+        with Routing(layers) as dense_route:
+            want, _ = b_.prefill(params, prompt)
+        with Routing(layers, dense_route.choices) as free:
+            got_free, _ = ds.prefill(params, prompt)
+        K.dispatch._block_matmul_mma = counted("mma")
+        K.dispatch._block_matmul_fma = counted("fma")
+        try:
+            with ShapeCounter(torch, dynasparse) as seen, \
+                    Routing(layers, dense_route.choices, pin=True):
+                K.reset_launch_counts()
+                got, _ = ds.prefill(params, prompt)
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+        finally:
+            K.dispatch._block_matmul_mma = routes["mma"]
+            K.dispatch._block_matmul_fma = routes["fma"]
+        ms = {name: wall_ms(torch, lambda m=m: m.prefill(params, prompt),
+                            n=2)
+              for name, m in (("dense", b_), ("dynasparse", ds))}
+    ds_rel = rel_err(torch, got, want)
+    for name in ("dispatch", "tile_nnz"):
+        check(counts[name] > 0, f"{cfg.name} dense FFNs never launched "
+              f"{name} under dynasparse_ffn")
+    check(route_calls["mma"] > 0 and route_calls["fma"] == 0,
+          f"{cfg.name} bf16 dispatch routes {route_calls}, not all mma")
+    check(ds_rel < LM_REL, f"{cfg.name} dynasparse vs dense prefill, MoE "
+          f"choices pinned to dense's: {ds_rel}")
+    record("lm_family", arch=cfg.name, n_layers=cfg.n_layers,
+           kinds=[f"{k['mixer']}/{k['ffn']}"
+                  for k in transformer.layer_kinds(cfg)],
+           reduced="n_layers 32 -> 8 (one period)", dtype=cfg.dtype,
+           params=sum(t.numel() for t in leaves(params)),
+           ffn_density_after_prune=density, batch=JAMBA_BATCH,
+           prompt=JAMBA_PROMPT, steps=FAMILY_STEPS, float32=f32,
+           decode_vs_forward_rel=routed["rel"],
+           decode_vs_forward_moe_flips=routed["flips"],
+           decode_vs_forward_rel_pinned=routed["pinned_rel"],
+           dynasparse_vs_dense_prefill_rel=ds_rel,
+           dynasparse_vs_dense_prefill_rel_free=rel_err(torch, got_free,
+                                                        want),
+           dynasparse_vs_dense_prefill_moe_flips_free=sum(free.flips),
+           dynasparse_prefill_launches=counts, dispatch_route_calls=route_calls,
+           linear_calls=seen.calls,
+           k2p_histogram_skip_gemm_spdmm_spmm=seen.hist,
+           prefill_ms=ms, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+           seconds=time.perf_counter() - t1, card=card)
+    del params, b_, ds, got, got_free, want
+
+    # ---------------- (c) xlstm-125m, full width, float32 ----------------
+    t0 = fresh()
+    cfg = replace(get_arch("xlstm-125m"), dtype="float32")
+    params, _ = make(cfg, 2, prune=False)
+    b_ = model_zoo.build(cfg, device=dev)
+    toks = tokens_of(np.random.default_rng(7), cfg.vocab_size, XLSTM_BATCH,
+                     XLSTM_PROMPT + FAMILY_STEPS)
+    head = lambda h: h @ transformer.lm_head(cfg, params).T  # noqa: E731
+    rels = decode_vs_forward(torch, b_, params, toks, XLSTM_PROMPT, head)
+    check(max(rels) < LM_REL, f"{cfg.name} decode vs full forward {rels}")
+    with torch.inference_mode():
+        _, c = b_.prefill(params, {"tokens": toks[:, :XLSTM_PROMPT]},
+                          max_seq=XLSTM_PROMPT + 1)
+        ms = {"prefill": wall_ms(torch, lambda: b_.prefill(
+            params, {"tokens": toks[:, :XLSTM_PROMPT]}), n=2),
+            "decode_step": wall_ms(torch, lambda: b_.decode_step(
+                params, c, toks[:, XLSTM_PROMPT:XLSTM_PROMPT + 1],
+                XLSTM_PROMPT), n=3)}
+    record("lm_family", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+           kinds=[k["mixer"] for k in transformer.layer_kinds(cfg)],
+           params=sum(t.numel() for t in leaves(params)),
+           batch=XLSTM_BATCH, prompt=XLSTM_PROMPT, steps=FAMILY_STEPS,
+           decode_vs_forward_rel=rels, ms=ms,
+           peak_memory_bytes=torch.cuda.max_memory_allocated(),
+           seconds=time.perf_counter() - t0, card=card)
+    del params, b_, c
+
+    # ---------------- (d) whisper-large-v3, full width -------------------
+    t0 = fresh()
+    cfg = get_arch("whisper-large-v3")
+    params, density = make(cfg, 3)
+    b_ = model_zoo.build(cfg, device=dev)
+    gen.manual_seed(8)
+    frames = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model),
+                         generator=gen, device=dev, dtype=cfg.jdtype)
+    prompt = tokens_of(np.random.default_rng(9), cfg.vocab_size,
+                       WHISPER_BATCH, WHISPER_PROMPT)
+    max_seq = WHISPER_PROMPT + FAMILY_STEPS
+    batch = {"frames": frames, "tokens": prompt}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = b_.prefill(params, batch, max_seq=max_seq)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        outs, toks = [logits], [prompt]
+        t = time.perf_counter()
+        for i in range(FAMILY_STEPS):
+            nxt = outs[-1][:, :cfg.vocab_size].argmax(-1)[:, None]
+            toks.append(nxt)
+            logits, caches = b_.decode_step(params, caches, nxt,
+                                            WHISPER_PROMPT + i)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t) / FAMILY_STEPS
+        del caches
+        seq = torch.cat(toks, 1)
+        enc = encdec.encode(cfg, params, frames)
+        x, _ = encdec.decoder_forward(cfg, params, seq, enc)
+        del enc
+        want = x[:, WHISPER_PROMPT - 1:] @ params["embed"].T
+        rels = [rel_err(torch, o, want[:, i]) for i, o in enumerate(outs)]
+        ds = model_zoo.build(replace(cfg, dynasparse_ffn=True), device=dev)
+        with ShapeCounter(torch, dynasparse) as seen:
+            K.reset_launch_counts()
+            got, c2 = ds.prefill(params, batch, max_seq=max_seq)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        del c2
+        ds_rel = rel_err(torch, got, outs[0])
+    check(max(rels) < LM_REL, f"{cfg.name} decode vs decoder_forward {rels}")
+    for name in ("dispatch", "tile_nnz"):
+        check(counts[name] > 0, f"{cfg.name} never launched {name} under "
+              "dynasparse_ffn")
+    check(ds_rel < LM_REL, f"{cfg.name} dynasparse vs dense prefill {ds_rel}")
+    record("lm_family", arch=cfg.name, enc_layers=cfg.encdec.n_enc_layers,
+           dec_layers=cfg.n_layers, params=sum(
+               t.numel() for t in leaves(params)),
+           ffn_density_after_prune=density, batch=WHISPER_BATCH,
+           frames=WHISPER_FRAMES, prompt=WHISPER_PROMPT, steps=FAMILY_STEPS,
+           greedy_tokens=seq[:, WHISPER_PROMPT:].tolist(),
+           decode_vs_forward_rel=rels, dynasparse_vs_dense_prefill_rel=ds_rel,
+           dynasparse_prefill_launches=counts, linear_calls=seen.calls,
+           k2p_histogram_skip_gemm_spdmm_spmm=seen.hist,
+           prefill_s=prefill_s, decode_step_s=decode_s,
+           peak_memory_bytes=torch.cuda.max_memory_allocated(),
+           seconds=time.perf_counter() - t0, card=card)
+    del params, b_, ds, frames, x, want, outs, got
+
+    # ---------------- (e) the smoke configs of all ten archs -------------
+    t0 = fresh()
+    smoke = {}
+    for arch in sorted(ARCHS):
+        cfg = smoke_config(arch)
+        if cfg.moe is not None:     # the reference test's dropless MoE
+            cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=float(
+                cfg.moe.n_experts * cfg.moe.top_k)))
+        if cfg.xlstm is not None:   # and its float32 xLSTM
+            cfg = replace(cfg, dtype="float32")
+        b_ = model_zoo.build(cfg, device=dev)
+        params = b_.init_params(4)
+        toks = tokens_of(np.random.default_rng(10), cfg.vocab_size, 2, 32)
+        if cfg.encdec is None:
+            head = lambda h, c=cfg, p=params: \
+                h @ transformer.lm_head(c, p).T  # noqa: E731
+            smoke[arch] = max(decode_vs_forward(torch, b_, params, toks, 31,
+                                                head))
+        else:
+            gen.manual_seed(11)
+            fr = torch.randn((2, 32, cfg.d_model), generator=gen,
+                             device=dev, dtype=cfg.jdtype)
+            with torch.inference_mode():
+                enc = encdec.encode(cfg, params, fr)
+                x, _ = encdec.decoder_forward(cfg, params, toks[:, :8], enc)
+                want = x[:, -1] @ params["embed"].T
+                _, c = b_.prefill(params, {"frames": fr,
+                                           "tokens": toks[:, :7]}, max_seq=8)
+                got, _ = b_.decode_step(params, c, toks[:, 7:8], 7)
+            smoke[arch] = rel_err(torch, got, want)
+        check(smoke[arch] < LM_REL, f"smoke {arch}: decode vs full forward "
+              f"rel {smoke[arch]}")
+    record("lm_family_smoke", decode_vs_forward_rel=smoke,
+           seconds=time.perf_counter() - t0)
+    record("phase", name="10 LM families",
+           seconds=time.perf_counter() - t_phase, card=card)
 
 
 def wall_ms(torch, fn, n: int = 5) -> float:

@@ -1,3 +1,3 @@
-"""Architecture configs of the port (the dense LM archs)."""
+"""Architecture configs: the ten LM archs of the reference."""
 from repro_torch.configs.registry import (ARCHS, SHAPES, get_arch,  # noqa: F401
-                                          smoke_config)
+                                          get_shape, smoke_config)

@@ -3,10 +3,9 @@
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package).  One frozen dataclass describes every architecture;
 family-specific sub-configs (MoE / MLA / Mamba / xLSTM / enc-dec) are
-optional fields.  The port's model code (``repro_torch.models``) runs the
-dense decoder-only family; the other sub-configs are kept so configs stay
-field-for-field equal to the reference's.  ``jdtype`` returns a
-``torch.dtype``.
+optional fields.  The port's model code (``repro_torch.models``) is
+driven entirely by these values, and configs stay field-for-field equal to
+the reference's.  ``jdtype`` returns a ``torch.dtype``.
 """
 from __future__ import annotations
 

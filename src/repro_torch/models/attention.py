@@ -1,18 +1,18 @@
-"""Attention mixer: GQA with three implementations.
+"""Attention mixers: GQA and MLA (DeepSeek-V2), with three implementations.
 
-Port of the GQA half of ``repro.models.attention`` (MLA waits, ROADMAP
-queue 1).  Layouts are the reference's: q (B, Sq, H, hd), k/v (B, Skv, G,
-hd) with H = G * rep.
+Port of ``repro.models.attention``.  Layouts are the reference's: q (B,
+Sq, H, hd), k/v (B, Skv, G, hd) with H = G * rep.
 
 * ``einsum``  -- full (Sq x Skv) scores; the prefill branch repeats the
   GQA kv heads, the decode branch (Sq == 1) attends grouped;
 * ``chunked`` -- a loop over query chunks of ``cfg.attn_chunk``, each with
   masked full-length scores;
 * ``flash``   -- the CUDA kernel through ``kernels.ops.flash_attention``;
-  forward without a cache only, as in the reference.
+  forward without a cache only, as in the reference; MLA refuses it.
 
-KV caches are dicts of (B, Smax, G, hd) tensors updated IN PLACE at
-``pos`` (the reference returns updated copies; the port saves the memory).
+KV caches are dicts of (B, Smax, G, hd) tensors (MLA: the latent ``ckv``
+and ``krope``) updated IN PLACE at ``pos`` (the reference returns updated
+copies; the port saves the memory).
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
+from repro_torch.models.layers import (Gen, apply_rope, device_of, randn,
+                                      rmsnorm, rope_tables)
 
 NEG = -1e30
 
@@ -109,21 +110,19 @@ def attend(q, k, v, cfg: ModelConfig, *, causal: bool = True,
 # GQA
 # --------------------------------------------------------------------------
 
-def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype
-             ) -> Dict:
+def init_gqa(gen: Gen, cfg: ModelConfig, dtype: torch.dtype) -> Dict:
     d, hd = cfg.d_model, cfg.head_dim_
-    kw = dict(dtype=dtype, device=gen.device, generator=gen)
     s = d ** -0.5
     p = {
-        "wq": torch.randn((d, cfg.n_heads * hd), **kw) * s,
-        "wk": torch.randn((d, cfg.n_kv_heads * hd), **kw) * s,
-        "wv": torch.randn((d, cfg.n_kv_heads * hd), **kw) * s,
-        "wo": torch.randn((cfg.n_heads * hd, d), **kw)
-        * (cfg.n_heads * hd) ** -0.5,
+        "wq": randn(gen, (d, cfg.n_heads * hd), dtype, s),
+        "wk": randn(gen, (d, cfg.n_kv_heads * hd), dtype, s),
+        "wv": randn(gen, (d, cfg.n_kv_heads * hd), dtype, s),
+        "wo": randn(gen, (cfg.n_heads * hd, d), dtype,
+                    (cfg.n_heads * hd) ** -0.5),
     }
     if cfg.qk_norm:
-        p["qnorm"] = torch.zeros((hd,), dtype=torch.float32, device=gen.device)
-        p["knorm"] = torch.zeros((hd,), dtype=torch.float32, device=gen.device)
+        p["qnorm"] = torch.zeros((hd,), device=device_of(gen))
+        p["knorm"] = torch.zeros((hd,), device=device_of(gen))
     return p
 
 
@@ -181,3 +180,101 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
     o = attend(q, k.to(q.dtype), v.to(q.dtype), cfg, causal=causal,
                kv_len=kv_len, q_offset=q_offset)
     return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-compressed KV
+# --------------------------------------------------------------------------
+
+def init_mla(gen: Gen, cfg: ModelConfig, dtype: torch.dtype) -> Dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    s = d ** -0.5
+    r = m.kv_lora_rank
+    return {
+        "wq": randn(gen, (d, h * (m.qk_nope_dim + m.qk_rope_dim)), dtype, s),
+        "wdkv": randn(gen, (d, r), dtype, s),
+        "wkrope": randn(gen, (d, m.qk_rope_dim), dtype, s),
+        "wuk": randn(gen, (r, h * m.qk_nope_dim), dtype, r ** -0.5),
+        "wuv": randn(gen, (r, h * m.v_head_dim), dtype, r ** -0.5),
+        "wo": randn(gen, (h * m.v_head_dim, d), dtype,
+                    (h * m.v_head_dim) ** -0.5),
+    }
+
+
+def mla_attention(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
+                  positions: torch.Tensor,
+                  cache: Optional[Dict] = None,
+                  pos: Optional[int] = None,
+                  absorbed: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """cache: {"ckv": (B, Smax, rank), "krope": (B, Smax, rope_dim)},
+    written in place at ``pos``.
+
+    The non-absorbed form up-projects the whole cached latent to per-head
+    K/V.  ``absorbed=True`` folds W_uk into the query and W_uv into the
+    output, so attention runs in the latent space: one kv head of width
+    rank + rope; a decode step (S == 1) scores the latent and rope caches
+    apart and adds them, reading the cache in place.
+
+    ``attn_impl="flash"`` is refused: the kernel scales by its own head
+    dim and needs v's head dim equal to q's, while MLA scales by
+    (nope + rope) ** -0.5 and its v is narrower (the reference's flash
+    branch fails on MLA's shapes).
+    """
+    if cfg.attn_impl == "flash":
+        raise ValueError("MLA does not run on the flash kernel: it drops "
+                         "MLA's scale and needs v's head dim equal to q's; "
+                         "use attn_impl='chunked' or 'einsum'")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q = (x @ p["wq"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    qn, qr = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    sin, cos = rope_tables(positions, m.qk_rope_dim, cfg.rope_theta)
+    qr = apply_rope(qr, sin, cos)
+    ckv = x @ p["wdkv"]                                   # (B, S, rank)
+    kr = apply_rope((x @ p["wkrope"])[:, :, None, :], sin, cos)[:, :, 0, :]
+    kv_len = None
+    q_offset = None
+    if cache is not None:
+        cache["ckv"][:, pos:pos + s] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, pos:pos + s] = kr.to(cache["krope"].dtype)
+        ckv, kr = cache["ckv"], cache["krope"]
+        kv_len = pos + s
+        q_offset = pos
+    skv = ckv.shape[1]
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    ckv_c = ckv.to(x.dtype)
+    kr_c = kr.to(x.dtype)
+    if absorbed:
+        wuk = p["wuk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", qn, wuk)
+        if s == 1:
+            # split-score decode: the latent and rope caches are scored
+            # apart, so no (B, Smax, rank + rope) copy is made
+            sc = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_c)
+                  + torch.einsum("bqhn,bkn->bhqk", qr, kr_c)) * scale
+            sc = sc.float()
+            if kv_len is not None:
+                kmask = torch.arange(skv, device=x.device) < kv_len
+                sc = torch.where(kmask[None, None, None, :], sc, NEG)
+            pr = torch.softmax(sc, dim=-1).to(x.dtype)
+            o_lat = torch.einsum("bhqk,bkr->bqhr", pr, ckv_c)
+        else:
+            qt = torch.cat([q_lat, qr], dim=-1)           # (b,s,h,rank+rope)
+            kt = torch.cat([ckv_c, kr_c], dim=-1)[:, :, None, :]
+            vt = ckv_c[:, :, None, :]                     # (b,skv,1,rank)
+            o_lat = attend(qt, kt, vt, cfg, causal=True, kv_len=kv_len,
+                           scale=scale, q_offset=q_offset)
+        wuv = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+        o = torch.einsum("bqhr,rhv->bqhv", o_lat, wuv)
+    else:
+        kn = (ckv_c @ p["wuk"]).reshape(b, skv, h, m.qk_nope_dim)
+        kt = torch.cat([kn, kr_c[:, :, None, :].expand(
+            b, skv, h, m.qk_rope_dim)], dim=-1)
+        qt = torch.cat([qn, qr], dim=-1)
+        v = (ckv_c @ p["wuv"]).reshape(b, skv, h, m.v_head_dim)
+        o = attend(qt, kt, v, cfg, causal=True, kv_len=kv_len, scale=scale,
+                   q_offset=q_offset)
+    return o.reshape(b, s, h * m.v_head_dim) @ p["wo"], cache

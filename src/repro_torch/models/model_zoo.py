@@ -1,10 +1,10 @@
-"""ModelBundle: one handle over the port's LM architectures.
+"""ModelBundle: one handle over all ten LM architectures.
 
-Port of ``repro.models.model_zoo`` for decoder-only configs (enc-dec
-waits, ROADMAP queue 1).  ``build(cfg, device)`` returns init / loss /
-prefill / decode closures on one device: the card unless the caller
-passes ``device="cpu"``.  :func:`params_from_reference` carries a JAX
-param pytree (as numpy arrays) into the port's layout.
+Port of ``repro.models.model_zoo``.  ``build(cfg, device)`` returns init /
+loss / prefill / decode closures dispatching on the family (decoder-only
+or encoder-decoder), on one device: the card unless the caller passes
+``device="cpu"``.  :func:`params_from_reference` carries a JAX param
+pytree (as numpy arrays) into the port's layout.
 """
 from __future__ import annotations
 
@@ -16,9 +16,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.models import transformer
-
-FLOAT32_LEAVES = ("ln1", "ln2", "final_norm", "qnorm", "knorm")
+from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import META
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,14 +31,15 @@ class ModelBundle:
     init_caches: Callable[..., Dict]
 
 
+def _module(cfg: ModelConfig):
+    return encdec if cfg.encdec is not None else transformer
+
+
 def build(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
-    """Bundle for a decoder-only ``cfg`` on ``device`` (default: CUDA,
-    raising without a card)."""
-    if cfg.encdec is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are {transformer.NOT_PORTED}")
-    transformer.check_dense(cfg)
+    """Bundle for ``cfg`` on ``device`` (default: CUDA, raising without a
+    card)."""
     dev = resolve(device)
+    mod = _module(cfg)
 
     def init_params(rng: Union[int, torch.Generator] = 0) -> Dict:
         """Random params from a seed or a ``torch.Generator`` on the
@@ -50,8 +50,22 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
             gen.manual_seed(int(rng))
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, bundle on {dev}")
-        return transformer.init_params(cfg, gen)
+        return mod.init_params(cfg, gen)
 
+    if cfg.encdec is not None:
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init_params=init_params,
+            loss_fn=lambda p, b: encdec.loss_fn(cfg, p, b),
+            prefill=lambda p, b, **kw: encdec.prefill(
+                cfg, p, b["frames"], b["tokens"], **kw),
+            decode_step=lambda p, c, t, pos: encdec.decode_step(
+                cfg, p, c, t, pos),
+            init_caches=lambda batch, max_seq,
+            enc_len=encdec.ENC_DECODE_LEN: encdec.init_caches(
+                cfg, batch, max_seq, enc_len, dev),
+        )
     return ModelBundle(
         cfg=cfg,
         device=dev,
@@ -66,14 +80,53 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
     )
 
 
-def _convert(tree: Any, dtype: torch.dtype, dev: torch.device,
-             f32: bool = False) -> Any:
+def _take(tree: Any, i: int) -> Any:
+    """Entry ``i`` of every leaf's leading (stacked) axis."""
     if isinstance(tree, Mapping):
-        return {k: _convert(v, dtype, dev, f32 or k in FLOAT32_LEAVES)
-                for k, v in tree.items()}
+        return {k: _take(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _unstack(params_np: Mapping) -> Dict:
+    """The reference's scanned layouts as one dict per layer: ``stack``
+    (one entry per period position, each leaf with a leading
+    ``n_periods`` axis; layer j is position j % period of period
+    j // period) and ``enc_stack``/``dec_stack`` (leading layer axis)."""
+    out = {k: v for k, v in params_np.items()
+           if k not in ("stack", "enc_stack", "dec_stack")}
+    if "stack" in params_np:
+        stack = params_np["stack"]
+        period = len(stack)
+        n_periods = len(np.asarray(stack[0]["ln1"]["scale"]))
+        out["layers"] = [_take(stack[j % period], j // period)
+                         for j in range(n_periods * period)]
+    for key, layers in (("enc_stack", "enc_layers"),
+                        ("dec_stack", "dec_layers")):
+        if key in params_np:
+            n = len(np.asarray(params_np[key]["ln1"]["scale"]))
+            out[layers] = [_take(params_np[key], i) for i in range(n)]
+    return out
+
+
+def _convert(tree: Any, like: Any, dev: torch.device, path: str) -> Any:
+    if isinstance(like, Mapping):
+        if not isinstance(tree, Mapping) or set(tree) != set(like):
+            have = sorted(tree) if isinstance(tree, Mapping) else type(tree)
+            raise ValueError(f"reference params at {path or '/'}: {have}, "
+                             f"the port's layout has {sorted(like)}")
+        return {k: _convert(tree[k], like[k], dev, f"{path}/{k}")
+                for k in like}
+    if isinstance(like, list):
+        if len(tree) != len(like):
+            raise ValueError(f"{len(tree)} layers in the reference params "
+                             f"at {path}, {len(like)} in the config")
+        return [_convert(t, lk, dev, f"{path}/{i}")
+                for i, (t, lk) in enumerate(zip(tree, like))]
     arr = np.array(tree, np.float32)
-    return torch.from_numpy(arr).to(
-        device=dev, dtype=torch.float32 if f32 else dtype)
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"reference param {path} has shape {arr.shape}, "
+                         f"the port's {tuple(like.shape)}")
+    return torch.from_numpy(arr).to(device=dev, dtype=like.dtype)
 
 
 def params_from_reference(params_np: Mapping, cfg: ModelConfig,
@@ -81,31 +134,13 @@ def params_from_reference(params_np: Mapping, cfg: ModelConfig,
     """The reference's param pytree, its leaves as numpy arrays (bfloat16
     leaves given as float32, which is lossless), in the port's layout.
 
-    Takes the reference's ``stack`` layout (one list entry per period
-    position, each leaf with a leading ``n_periods`` axis) and its
-    ``layers`` layout (one dict per layer).  Norm gains stay float32, as
-    the reference keeps them; every other leaf takes ``cfg.dtype``.
+    Takes every layout of the reference: ``stack`` with any period,
+    ``dense_first``, ``layers``, ``enc_stack``/``dec_stack`` and
+    ``enc_layers``/``dec_layers``, and nested leaves (a MoE layer's
+    ``shared`` experts).  Each leaf takes the dtype and must have the
+    shape of the port's own ``init_params`` at the same path, built on
+    the meta device.
     """
-    transformer.check_dense(cfg)
     dev = resolve(device)
-    dtype = cfg.jdtype
-    if "stack" in params_np:
-        stack = params_np["stack"]
-        n_periods = len(np.asarray(stack[0]["ln1"]["scale"]))
-
-        def layer(tree, i):
-            if isinstance(tree, Mapping):
-                return {k: layer(v, i) for k, v in tree.items()}
-            return np.asarray(tree)[i]
-
-        layers = [layer(stack[posn], i) for i in range(n_periods)
-                  for posn in range(len(stack))]
-    else:
-        layers = list(params_np["layers"])
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the reference params, "
-                         f"{cfg.n_layers} in {cfg.name}")
-    out = {k: _convert(v, dtype, dev, k in FLOAT32_LEAVES)
-           for k, v in params_np.items() if k not in ("stack", "layers")}
-    out["layers"] = [_convert(lp, dtype, dev) for lp in layers]
-    return out
+    like = _module(cfg).init_params(cfg, META)
+    return _convert(_unstack(params_np), like, dev, "")

@@ -45,11 +45,21 @@ class ServeEngine:
     left-padded prefill per wave, then one decode step per token shared by
     all slots.  Sampling is greedy at ``temperature <= 0``, else Gumbel-max
     on the host.  Sequences stop at ``max_new_tokens`` or ``max_seq``.
+
+    Serves every decoder-only arch.  An encoder-decoder bundle is refused:
+    its prefill needs the encoder's frames, which a ``Request`` does not
+    carry (the reference's engine fails on it, with a ``KeyError`` in its
+    prefill).
     """
 
     def __init__(self, bundle: ModelBundle, params, *, slots: int = 8,
                  max_seq: int = 256, temperature: float = 0.0,
                  rng_seed: int = 0):
+        if bundle.cfg.encdec is not None:
+            raise ValueError(
+                f"{bundle.cfg.name}: ServeEngine serves decoder-only models; "
+                "an encoder-decoder prefill needs frames (call the bundle's "
+                "prefill and decode_step)")
         self.bundle = bundle
         self.params = params
         self.device = bundle.device

@@ -128,7 +128,7 @@ def test_lm_smoke_dynasparse_serving_equals_dense(cuda):
 
     cfg = smoke_config("llama3.2-1b", n_layers=2)
     dense = model_zoo.build(cfg)
-    params = prune_ffn(dense.init_params(0), 0.1)
+    params = prune_ffn(dense.init_params(0), 0.1, period=cfg.layer_period)
     sparse_b = model_zoo.build(dataclasses.replace(cfg, dynasparse_ffn=True))
     rng = np.random.default_rng(2)
     reqs = [Request(rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
@@ -1058,3 +1058,173 @@ def test_flat_formats_on_the_card(cuda, dtype):
         assert torch.equal(getattr(via, f), getattr(direct, f)), f
     assert torch.equal(profiler.block_tile_density(x, (32, 32), (8, 8)).cpu(),
                        profiler.block_tile_density(x.cpu(), (32, 32), (8, 8)))
+
+
+# ---------------------------------------------- the LM layer kinds ------
+
+def _lm_cfg(arch, **kw):
+    from repro_torch.configs import smoke_config
+    return smoke_config(arch, dtype="float32", **kw)
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _mixer_case(kind):
+    """(fn(x, p, cfg, cache), params on the CPU, cfg, cache maker) of one
+    LM layer kind at its smoke config, float32."""
+    from repro_torch.models import attention, ssm, transformer, xlstm
+
+    gen = torch.Generator().manual_seed(0)
+    if kind in ("mla", "mla_absorbed"):
+        cfg = _lm_cfg("deepseek-v2-lite-16b")
+        absorbed = kind == "mla_absorbed"
+        p = attention.init_mla(gen, cfg, torch.float32)
+
+        def fn(x, p, c, cache, pos):
+            return attention.mla_attention(
+                x, p, cfg, positions=pos + torch.arange(
+                    x.shape[1], device=x.device), cache=cache, pos=pos,
+                absorbed=absorbed)
+        mixer = "attn"
+    else:
+        arch = "jamba-v0.1-52b" if kind == "mamba" else "xlstm-125m"
+        cfg = _lm_cfg(arch)
+        init = {"mamba": ssm.init_mamba, "mlstm": xlstm.init_mlstm,
+                "slstm": xlstm.init_slstm}[kind]
+        run = {"mamba": ssm.mamba_mixer, "mlstm": xlstm.mlstm_mixer,
+               "slstm": xlstm.slstm_mixer}[kind]
+        p = init(gen, cfg, torch.float32)
+
+        def fn(x, p, c, cache, pos):
+            return run(x, p, cfg, cache=cache)
+        mixer = kind
+
+    def cache(device):
+        return transformer._cache_for_kind(cfg, {"mixer": mixer}, 2, 24,
+                                           device)
+    return fn, p, cfg, cache
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm", "mla",
+                                  "mla_absorbed"])
+def test_lm_mixers_on_the_card_match_the_cpu(cuda, kind):
+    """Each new mixer, float32, on the card against the same mixer on the
+    CPU: no cache, prefill into a cache, then two decode steps."""
+    fn, p, cfg, cache = _mixer_case(kind)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 19, cfg.d_model), generator=gen) * 0.5
+    pc = _on(p, cuda)
+    want, _ = fn(x[:, :17], p, cfg, None, 0)
+    got, _ = fn(x[:, :17].to(cuda), pc, cfg, None, 0)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    cc, gc = cache("cpu"), cache(cuda)
+    for lo, hi in ((0, 17), (17, 18), (18, 19)):
+        want, _ = fn(x[:, lo:hi], p, cfg, cc, lo)
+        got, _ = fn(x[:, lo:hi].to(cuda), pc, cfg, gc, lo)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        for name in cc:
+            torch.testing.assert_close(gc[name].cpu(), cc[name], atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "grok-1-314b",
+                                  "jamba-v0.1-52b"])
+def test_moe_routing_on_the_card_equals_the_cpu(cuda, arch):
+    """Routing integers exact (stable top-k, float32 cumsum slots, drops)
+    and the MoE output within float32 tolerance, shared experts too."""
+    import dataclasses
+
+    from repro_torch.models import layers
+
+    cfg = _lm_cfg(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.6))
+    p = layers.init_moe(torch.Generator().manual_seed(2), cfg, torch.float32)
+    x = torch.randn((3, 23, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    want, want_aux = layers.moe_ffn(x, p, cfg)
+    got, got_aux = layers.moe_ffn(x.to(cuda), _on(p, cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert abs(float(got_aux) - float(want_aux)) < 1e-6
+    m = cfg.moe
+    xg = torch.nn.functional.pad(x.reshape(69, -1), (0, 0, 0, 27))
+    xg = xg.reshape(3, 32, -1)
+    r_cpu = layers.moe_routing(xg, p, m, 69)
+    r_gpu = layers.moe_routing(xg.to(cuda), _on(p, cuda), m, 69)
+    for name in ("gate_i", "pos", "keep", "slot"):
+        assert torch.equal(r_gpu[name].cpu(), r_cpu[name]), name
+    assert not bool(r_cpu["keep"].all())          # capacity 0.6 drops
+
+
+def test_flash_attention_refuses_head_dim_192_and_mla(cuda):
+    """deepseek's head dim (128 nope + 64 rope) is not a kernel head dim;
+    MLA refuses flash before it gets there."""
+    import dataclasses
+
+    from repro_torch.models import attention
+
+    q = torch.zeros((1, 2, 16, 192), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 192"):
+        ops.flash_attention(q, q, q, causal=True)
+    _, p, cfg, _ = _mixer_case("mla")
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    with pytest.raises(ValueError, match="flash"):
+        attention.mla_attention(torch.zeros((1, 8, cfg.d_model),
+                                            device=cuda), _on(p, cuda),
+                                flash, positions=torch.arange(8,
+                                                              device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "grok-1-314b",
+                                  "jamba-v0.1-52b", "xlstm-125m",
+                                  "whisper-large-v3", "chatglm3-6b",
+                                  "chameleon-34b", "mistral-large-123b"])
+def test_lm_archs_on_the_card_match_the_cpu(cuda, arch):
+    """Each new arch's smoke config, float32, the same params on both:
+    prefill and a decode step's logits on the card against the CPU's."""
+    from repro_torch.models import model_zoo
+
+    cfg = _lm_cfg(arch)
+    cpu = model_zoo.build(cfg, device="cpu")
+    gpu = model_zoo.build(cfg, device=cuda)
+    params = cpu.init_params(5)
+    pg = _on(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 12)))
+    batch = {"tokens": toks[:, :11]}
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn(
+            (2, 16, cfg.d_model), generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        want, cc = cpu.prefill(params, batch, max_seq=12)
+        got, gc = gpu.prefill(pg, {k: v.to(cuda) for k, v in batch.items()},
+                              max_seq=12)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        want, _ = cpu.decode_step(params, cc, toks[:, 11:], 11)
+        got, _ = gpu.decode_step(pg, gc, toks[:, 11:].to(cuda), 11)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("density", [0.1, 0.37])
+def test_prune_ffn_on_the_card_equals_the_cpu(cuda, density):
+    """bf16 leaves take the histogram threshold on the card; masks equal
+    the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+
+    cfg = smoke_config("deepseek-v2-lite-16b")
+    params = model_zoo.build(cfg, device="cpu").init_params(8)
+    pg = _on(params, cuda)
+    want = serve.prune_ffn(params, density, period=cfg.layer_period)
+    got = serve.prune_ffn(pg, density, period=cfg.layer_period)
+    for group in serve.leaf_groups(params, cfg.layer_period):
+        for key, j, path in group:
+            assert torch.equal(serve._get(got[key][j], path).cpu(),
+                               serve._get(want[key][j], path))

@@ -147,6 +147,41 @@ def test_simulator_slice_imports_no_jax(module, names):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.models.layers",
+     "moe_capacity moe_routing moe_ffn init_moe"),
+    ("repro_torch.models.attention", "init_mla mla_attention"),
+    ("repro_torch.models.ssm", "init_mamba _causal_conv _ssm_chunk "
+     "mamba_mixer"),
+    ("repro_torch.models.xlstm", "init_mlstm _mlstm_parallel mlstm_mixer "
+     "init_slstm slstm_mixer"),
+    ("repro_torch.models.encdec",
+     "ENC_DECODE_LEN sinusoid init_params encode decoder_forward loss_fn "
+     "init_caches prefill decode_step"),
+    ("repro_torch.models.transformer",
+     "init_block apply_block _cache_for_kind init_caches forward"),
+    ("repro_torch.configs.registry",
+     "ARCHS SHAPES SUBQUADRATIC get_arch get_shape cell_supported "
+     "smoke_config"),
+    ("repro_torch.launch.serve",
+     "prune_ffn leaf_groups magnitude_threshold generate_encdec")])
+def test_lm_layer_kinds_import_no_jax(module, names):
+    """The LM layer kinds (MoE, MLA, mamba, xLSTM, encoder-decoder) live in
+    the port and pull in neither jax nor the JAX package."""
+    test_simulator_slice_imports_no_jax(module, names)
+
+
+def test_the_dense_only_guard_is_gone():
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model_zoo, transformer
+
+    assert not hasattr(transformer, "check_dense")
+    assert not hasattr(transformer, "NOT_PORTED")
+    assert len(ARCHS) == 10
+    for cfg in ARCHS.values():
+        model_zoo.build(cfg, device="cpu")
+
+
 def test_the_distributed_package_is_covered():
     mods = _port_modules()
     assert {"repro_torch.distributed",

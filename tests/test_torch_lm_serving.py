@@ -89,7 +89,8 @@ def test_prune_ffn_masks_equal_the_reference():
     tp = model_zoo.params_from_reference(to_np(jp), tcfg, device="cpu")
     for density in (0.1, 0.37):
         jpp = j_prune(jp, density, np.random.default_rng(0))
-        tpp = serve.prune_ffn(tp, density)
+        tpp = serve.prune_ffn(jax.tree.map(torch.clone, tp), density,
+                              period=tcfg.layer_period)
         for i, lp in enumerate(tpp["layers"]):
             for name in ("w1", "w2", "w3"):
                 want = np.asarray(jpp["stack"][0]["ffn"][name][i],
@@ -98,9 +99,9 @@ def test_prune_ffn_masks_equal_the_reference():
                 np.testing.assert_array_equal(got != 0, want != 0)
                 np.testing.assert_array_equal(got, want)
             assert torch.equal(lp["mix"]["wq"], tp["layers"][i]["mix"]["wq"])
-        # the input params are not modified
-        assert all(torch.count_nonzero(lp["ffn"]["w1"]) == lp["ffn"]["w1"]
-                   .numel() for lp in tp["layers"])
+        # the pruned weights are zeroed in the given tensors
+        assert all(torch.count_nonzero(lp["ffn"]["w1"]) < lp["ffn"]["w1"]
+                   .numel() for lp in tpp["layers"])
 
 
 def test_dynasparse_serving_equals_dense_in_the_port():
