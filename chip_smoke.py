@@ -84,7 +84,17 @@ card at the shapes its path gives it, then drives the port's paths:
   jamba-v0.1-52b (8 layers, float32) and xlstm-125m (float32), each
   decode against its full forward, jamba's dense FFNs on ``dispatch``;
   whisper-large-v3 on 2 x 3000 stub frames, 8 greedy steps against
-  ``decoder_forward``; then the ten archs' smoke configs.
+  ``decoder_forward``; then the ten archs' smoke configs;
+* LM training (phase 11): the ``dispatch`` backward (the reference's
+  masked VJP as two launches over the permuted code grid) at llama3.2-1b's
+  FFN shapes, bf16 and float32, against autograd through the plain
+  version, dx exactly 0 where the forward SKIPped; llama3.2-1b at full
+  width trained 4 steps (batch 8 x 256, lr 3e-3, float32 AdamW state)
+  with ``dynasparse_ffn`` through ``make_train_step`` + ``Trainer`` +
+  ``TokenPipeline`` (48 forward and 96 backward ``dispatch``, 144
+  ``tile_nnz`` a step) and dense; ``launch/train.py`` with a failure at
+  step 2 restarting from its step-2 checkpoint, equal to the
+  uninterrupted dense run.
 
 bf16 operands run on the tensor-core routes of ``dispatch`` and
 ``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes
@@ -896,6 +906,9 @@ def main() -> int:
     # ---------------- phase 10: the LM families --------------------------
     lm_families_phase(torch, np, K, dev, card, kernel_entry)
 
+    # ---------------- phase 11: LM training (llama3.2-1b) ----------------
+    train_counts = train_phase(torch, np, K, dev, card, kernel_entry)
+
     kernels_line["gemm"]["launches"] = main_counts["gemm"]
     kernels_line["spdmm"]["launches"] = main_counts["spdmm"]
     kernels_line["dispatch"]["launches"] = main_counts["dispatch"]
@@ -905,10 +918,13 @@ def main() -> int:
     kernels_line["flash_attention"]["launches"] = \
         lm_counts["score"]["flash_attention"]
     kernels_line[LM_DISPATCH]["launches"] = lm_counts["serve"]["dispatch"]
+    kernels_line[LM_DISPATCH_BWD]["launches"] = \
+        train_counts["backward_dispatch"]
     kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
     kernels_line["tile_nnz_batched"]["launches"] = \
         serve_counts["tile_nnz_batched"]
-    check(set(K.launch_counts()) | {LM_DISPATCH} == set(kernels_line)
+    check(set(K.launch_counts()) | {LM_DISPATCH, LM_DISPATCH_BWD}
+          == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
     out_dir = ROOT / "chiprun_out"
@@ -4018,6 +4034,335 @@ def lm_families_phase(torch, np, K, dev, card, kernel_entry) -> None:
            seconds=time.perf_counter() - t_phase, card=card)
 
 
+# phase 11: LM training, llama3.2-1b at full width on the one card, with
+# the CLI's defaults (launch/train.py): batch 8 x 256 tokens, lr 3e-3,
+# warmup 20, float32 optimizer state
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 4, 3e-3
+TRAIN_REL = 5e-2        # dynasparse vs dense first-step loss and grad norm
+RESTART_TOL = 1e-5      # restarted vs uninterrupted final params
+# the bf16 dispatch kernel's backward launches (dx and dw of every FFN
+# product on the training path), timed on dx of w1
+LM_DISPATCH_BWD = "dispatch (bf16, backward)"
+
+
+def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
+    """Phase 11: (a) the dispatch backward at llama3.2-1b's FFN shapes
+    (2048 tokens; w1 2048 -> 8192, w2 8192 -> 2048) in bf16 and float32
+    against autograd through ``block_matmul_plain``, zero 256-blocks
+    planted in x and w, each backward launch timed; (b) four training
+    steps at full width with ``dynasparse_ffn`` (``make_train_step`` +
+    ``Trainer`` + ``TokenPipeline``), launches per step counted, and the
+    same four steps dense; (c) ``launch.train.main`` with a failure at
+    step 2 and a restart from the step-2 checkpoint, held to the dense
+    run.  Returns the launch counts of (b)'s window."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import analyzer, dynasparse, profiler
+    from repro_torch.core.perf_model import TPUCostModel
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers, model_zoo
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer, TrainState, \
+        make_train_step
+
+    t_phase = time.perf_counter()
+    blk = layers.FFN_BLOCK
+    bm, bk, bn = blk
+    cfg = get_arch(LM_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    # ---- (a) the backward against autograd of the plain version --------
+    def operand(rows, cols, scale):
+        t = torch.randn((rows, cols), generator=gen, device=dev) * scale
+        t[:bm, bk:2 * bk] = 0          # one zero 256-block: SKIP codes
+        return t
+
+    x = operand(tokens, cfg.d_model, 1.0)
+    w1 = operand(cfg.d_model, cfg.d_ff, cfg.d_model ** -0.5)
+    h = operand(tokens, cfg.d_ff, 1.0)
+    w2 = operand(cfg.d_ff, cfg.d_model, cfg.d_ff ** -0.5)
+    backward_cases = {}
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for prod, (xs, ws) in (("w1", (x, w1)), ("w2", (h, w2))):
+            xs, ws = xs.to(dtype), ws.to(dtype)
+            codes = analyzer.plan_codes(
+                "dynamic", profiler.block_density(xs, blk[:2]),
+                profiler.block_density(ws, blk[1:]), TPUCostModel())
+            m, n = xs.shape[0], ws.shape[1]
+            g = torch.randn((m, n), generator=gen, device=dev).to(
+                dtype).float()
+            grads = {}
+            for route in ("kernel", "plain"):
+                xr = xs.clone().requires_grad_()
+                wr = ws.clone().requires_grad_()
+                K.reset_launch_counts()
+                if route == "kernel":
+                    out = dynasparse.BlockMatmulFn.apply(xr, wr, codes, blk)
+                else:
+                    out = K.dispatch.block_matmul_plain(
+                        xr, wr, codes, blk, pad_rows=False)[:m, :n]
+                out.backward(g)
+                torch.cuda.synchronize()
+                launched = K.launch_counts()["dispatch"]
+                check(launched == (3 if route == "kernel" else 0),
+                      f"backward {label} {prod}: {launched} dispatch "
+                      f"launches by the {route} route")
+                grads[route] = (xr.grad, wr.grad)
+                del out, xr, wr
+            run = (codes != 0).to(torch.int32)
+            skipped = (run.sum(1) == 0)                      # (I, Kb)
+            check(bool(skipped[0, 1]), f"{prod}: the planted zero block "
+                  "of x was not SKIPped by every step")
+            dxk = grads["kernel"][0].float()
+            dense = (g @ ws.float().T)
+            mask = skipped.repeat_interleave(bm, 0).repeat_interleave(
+                bk, 1)[:m, :xs.shape[1]]
+            check(bool(torch.all(dxk[mask] == 0)),
+                  f"{prod} {label}: dx not 0 where every step SKIPped")
+            errs = {}
+            for i, name in ((0, "dx"), (1, "dw")):
+                got = grads["kernel"][i].float()
+                want = grads["plain"][i].float()
+                errs[name] = float((got - want).abs().max()
+                                   / want.abs().max())
+                errs[name + "_bitwise"] = bool(torch.equal(got, want))
+                check(errs[name] <= (BF16_TOL if dtype == torch.bfloat16
+                                     else TOL),
+                      f"backward {label} {prod} {name}: rel err "
+                      f"{errs[name]}")
+            record("train_backward_check", dtype=label, product=prod,
+                   x=list(xs.shape), w=list(ws.shape),
+                   codes_histogram=torch.bincount(
+                       codes.flatten().long(), minlength=4).tolist(),
+                   skipped_x_blocks=int(skipped.sum()),
+                   dense_dx_in_skipped=float(dense[mask].abs().max()),
+                   rel_err_vs_autograd_of_plain=errs,
+                   tol=BF16_TOL if dtype == torch.bfloat16 else TOL)
+            backward_cases[(label, prod)] = (xs, ws, g.to(dtype), run)
+            del grads, dense, dxk, mask
+    def rel_to_max(got, want, tol):
+        """(max|err|, ok): within ``tol`` of the largest |want| -- dw sums
+        2048 token products of size ~1 (|dw| ~ 45), so float32 order
+        differences reach 7e-4 absolute where an elementwise tolerance
+        reads them against small entries; a stale 32-wide k slice would
+        move a sum by ~10 % of its size."""
+        err = float((got.double() - want.double()).abs().max())
+        return err, err <= tol * float(want.double().abs().max())
+
+    # each backward launch as the Function makes it, timed
+    for (label, prod), (xs, ws, gd, run) in backward_cases.items():
+        bf16 = label == "bf16"
+        for name, a, b, c, b_ in (
+                ("dx", gd, ws.T, run.permute(0, 2, 1).contiguous(),
+                 (bm, bn, bk)),
+                ("dw", xs.T, gd, run.permute(2, 1, 0).contiguous(),
+                 (bk, bm, bn))):
+            case = (f"dispatch backward ({label}, {name} of {prod}: "
+                    f"{tuple(a.shape)} @ {tuple(b.shape)})")
+            if not bf16:
+                # the fma route: checked and timed by CUDA events only
+                # (the float32 dispatch equals its plain version bitwise)
+                got = K.dispatch.block_matmul(a, b, c, b_, pad_rows=False)
+                want = K.dispatch.block_matmul_plain(a, b, c, b_,
+                                                     pad_rows=False)
+                err, ok = rel_to_max(got, want, TOL)
+                check(ok, f"{case}: max|err| {err}")
+                b_ms, b_by = bound(*dispatch_work(torch, K, a, b, c, b_))
+                record("kernel", name=case, route="fma",
+                       source="src/repro_torch/kernels/csrc/dispatch.cu",
+                       max_abs_err=err, bitwise=bool(torch.equal(got, want)),
+                       ms=cuda_ms(torch, lambda a=a, b=b, c=c, b_=b_:
+                                  K.dispatch.block_matmul(
+                                      a, b, c, b_, pad_rows=False)),
+                       plain_ms=cuda_ms(torch, lambda a=a, b=b, c=c, b_=b_:
+                                        K.dispatch.block_matmul_plain(
+                                            a, b, c, b_, pad_rows=False)),
+                       library_ms=cuda_ms(torch, lambda a=a, b=b:
+                                          torch.matmul(a, b)),
+                       bound_ms=b_ms, bound_by=b_by, tol=TOL,
+                       in_kernels_line=False)
+                del got, want
+                continue
+            kernel_entry(
+                case,
+                "src/repro_torch/kernels/csrc/dispatch.cu",
+                "src/repro/core/dynasparse.py:239",
+                lambda a=a, b=b, c=c, b_=b_: K.dispatch.block_matmul(
+                    a, b, c, b_, pad_rows=False),
+                lambda a=a, b=b, c=c, b_=b_: K.dispatch.block_matmul_plain(
+                    a, b, c, b_, pad_rows=False),
+                lambda a=a, b=b: torch.matmul(a, b),
+                dispatch_work(torch, K, a, b, c, b_), lambda g_, w_: True,
+                tol=DISPATCH_BF16_TOL, peak=PEAK_BF16, units="mma",
+                line=(name, prod) == ("dx", "w1"),
+                line_name=LM_DISPATCH_BWD, compare=rel_to_max,
+                lib_call="torch.matmul (the operand transposed, a view)")
+    del backward_cases, x, w1, h, w2
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - t_phase
+
+    # ---- (b) four steps at full width, dynasparse then dense ----------
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+
+    def batch_for_step(step):
+        return {k: torch.from_numpy(v).to(dev, torch.long)
+                for k, v in pipe.batch_for_step(step).items()}
+
+    def trainer_for(dyn, steps_log):
+        c = dataclasses.replace(cfg, dynasparse_ffn=dyn)
+        bundle = model_zoo.build(c, device=dev)
+        opt = AdamW(lr=TRAIN_LR, warmup_steps=20, total_steps=TRAIN_STEPS,
+                    state_dtype=c.opt_state_dtype)
+        fwd = []
+
+        def loss_fn(params, batch):
+            c0 = K.launch_counts()
+            loss = bundle.loss_fn(params, batch)
+            c1 = K.launch_counts()
+            fwd.append({k: c1[k] - c0[k] for k in c1})
+            return loss
+
+        step = make_train_step(loss_fn, opt, decay=model_zoo.decay_mask(c))
+
+        def counted(state, batch):
+            c0 = K.launch_counts()
+            state, metrics = step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            c1 = K.launch_counts()
+            total = {k: c1[k] - c0[k] for k in c1}
+            steps_log.append({"metrics": metrics, "total": total,
+                              "forward": fwd.pop()})
+            return state, metrics
+
+        params = bundle.init_params(0)
+        return Trainer(counted, batch_for_step,
+                       TrainState(params, opt.init(params)),
+                       log_every=1)
+
+    logs = {True: [], False: []}
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = trainer_for(True, logs[True])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    trainer.run(1, log=lines.append)
+    prof = profile_device(torch, lambda: trainer.run(1, log=lines.append),
+                          n=1, warm=False, windows=1)
+    trainer.run(TRAIN_STEPS - 2, log=lines.append)
+    torch.cuda.synchronize()
+    window = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    walls = list(trainer._times)
+    per_layer = 3 * cfg.n_layers          # w1, w3, w2 of every layer
+    for i, s in enumerate(logs[True]):
+        fwd_d, tot_d = s["forward"]["dispatch"], s["total"]["dispatch"]
+        check(fwd_d == per_layer and tot_d - fwd_d == 2 * per_layer
+              and s["total"]["tile_nnz"] == 3 * per_layer
+              and s["forward"]["tile_nnz"] == 3 * per_layer,
+              f"train step {i}: dispatch {fwd_d} forward / {tot_d - fwd_d} "
+              f"backward, tile_nnz {s['total']['tile_nnz']} (want "
+              f"{per_layer} / {2 * per_layer}, {3 * per_layer})")
+        check(all(np.isfinite(v) for v in s["metrics"].values()),
+              f"train step {i}: {s['metrics']}")
+    check(window["dispatch"] == 3 * per_layer * TRAIN_STEPS
+          and window["tile_nnz"] == 3 * per_layer * TRAIN_STEPS,
+          f"train window launches {window}")
+    record("train_dynasparse", arch=cfg.name, steps=TRAIN_STEPS,
+           batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+           state_dtype=cfg.opt_state_dtype,
+           params=sum(t.numel() for t in leaves(trainer.state.params)),
+           metrics=[s["metrics"] for s in logs[True]],
+           forward_launches=logs[True][0]["forward"],
+           step_launches=logs[True][0]["total"], window_launches=window,
+           step_wall_s=walls, init_s=init_s, peak_memory_bytes=peak,
+           profiled_step=prof, log=lines, backward_check_s=a_s, card=card)
+    del trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dense = trainer_for(False, logs[False])
+    K.reset_launch_counts()
+    dense.run(2, log=lines.append)
+    dense.run(TRAIN_STEPS - 2, log=lines.append)
+    torch.cuda.synchronize()
+    dense_counts = K.launch_counts()
+    check(dense_counts["dispatch"] == 0 and dense_counts["tile_nnz"] == 0,
+          f"dense training launched {dense_counts}")
+    first = {k: (logs[True][0]["metrics"][k], logs[False][0]["metrics"][k])
+             for k in ("loss", "grad_norm")}
+    rel = {k: abs(a - b) / abs(b) for k, (a, b) in first.items()}
+    check(all(r <= TRAIN_REL for r in rel.values()),
+          f"dynasparse vs dense first step: {first}")
+    record("train_dense", metrics=[s["metrics"] for s in logs[False]],
+           step_wall_s=list(dense._times),
+           peak_memory_bytes=torch.cuda.max_memory_allocated(),
+           first_step_dynasparse_vs_dense=first, first_step_rel=rel,
+           tol=TRAIN_REL, card=card)
+
+    # ---- (c) the CLI's restart from a checkpoint -----------------------
+    b_s = time.perf_counter() - t_phase - a_s
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        restarted = train_cli.main([
+            "--full", "--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "2",
+            "--fail-at", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    printed = out.getvalue().splitlines()
+    check(any(line.startswith("FAILURE: injected failure at step 2")
+              for line in printed) and restarted.step == TRAIN_STEPS,
+          f"train CLI: {printed[-3:]}")
+    t0 = time.perf_counter()
+    back, at = ckpt_lib.restore(str(ckpt_dir), restarted.state)
+    restore_s = time.perf_counter() - t0
+    saved = tree_lib.flatten(restarted.state)[0]
+    check(at == TRAIN_STEPS and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(tree_lib.flatten(back)[0], saved)),
+        "restored checkpoint differs from the saved state")
+    del back
+    final = tree_lib.flatten(restarted.state.params)[0]
+    ref = tree_lib.flatten(dense.state.params)[0]
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(final, ref))
+    same = all(torch.equal(a, b) for a, b in zip(final, ref))
+    check(diff <= RESTART_TOL, f"restarted vs uninterrupted params: {diff}")
+    files = sorted(p.name for p in ckpt_dir.iterdir())
+    record("train_restart", printed=printed, cli_s=cli_s,
+           training_s=b_s,
+           restore_check_s=restore_s, steps=restarted.step,
+           checkpoint_files=files,
+           checkpoint_bytes=sum(f.stat().st_size
+                                for f in ckpt_dir.rglob("*.npy")),
+           restored_equals_saved=True,
+           restarted_vs_uninterrupted_max_abs=diff,
+           restarted_equals_uninterrupted=same,
+           tol=RESTART_TOL, card=card)
+    del restarted, dense
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    record("phase", name="11 LM training",
+           seconds=time.perf_counter() - t_phase, card=card)
+    return {"backward_dispatch": sum(
+        s["total"]["dispatch"] - s["forward"]["dispatch"]
+        for s in logs[True])}
+
+
 def wall_ms(torch, fn, n: int = 5) -> float:
     """Median host-clock ms of ``fn`` over ``n`` synchronised calls, after
     one warm-up call."""
@@ -4036,9 +4381,12 @@ SENTINELS = 32        # spin kernels opening each profiler window
 WINDOWS = 4           # profiler windows taken at most, until one is whole
 
 
-def profile_device(torch, fn, n: int = 3, top: int = 10) -> dict:
+def profile_device(torch, fn, n: int = 3, top: int = 10, warm: bool = True,
+                   windows: int = WINDOWS) -> dict:
     """Device busy time and the top device ops of ``fn``, from
-    ``torch.profiler`` over ``n`` calls after a warm-up call (the
+    ``torch.profiler`` over ``n`` calls after a warm-up call (none when
+    ``warm`` is False, for a call that must run a set number of times, as
+    a training step; then ``windows=1``: a window is not taken again) (the
     profiler's own overhead is in ``wall_ms_profiled``).
 
     On the H100 the profiler sometimes drops the first device events of
@@ -4052,7 +4400,8 @@ def profile_device(torch, fn, n: int = 3, top: int = 10) -> dict:
     drops grows as the process runs: past 4 after phase 5d's replays,
     hence ``SENTINELS`` 32."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
 
     def dev_ms(e):
@@ -4061,7 +4410,7 @@ def profile_device(torch, fn, n: int = 3, top: int = 10) -> dict:
             us = getattr(e, "self_cuda_time_total", 0.0)
         return us / 1e3 / n
 
-    for window in range(1, WINDOWS + 1):
+    for window in range(1, windows + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(SENTINELS):

@@ -32,6 +32,15 @@ The planner bypasses (``codes``, ``dens_x``/``dens_y``, ``fmt``, ``ell``)
 keep the reference's meaning: the fused whole-model executor plans from
 propagated writeback profiles and shares one ELL view across kernels.
 
+Gradients: where grad mode is on and x or y requires a gradient, the
+``dispatch`` route runs inside :class:`BlockMatmulFn`, whose backward is
+two more ``dispatch`` launches on transposed operands with the code grid
+permuted: the reference's masked VJP (its ``lax.switch`` SKIP branch
+returns ``acc``, so ``jax.grad`` gives no gradient through a SKIPped
+block step).  Profiling, planning and the writeback counts read detached
+tensors.  The other CUDA routes (float32 static ``gemm``/``spdmm``, row
+CSR) have no backward and raise under grad.
+
 :func:`attention_adjacency` is GAT's attention kernel: the masked
 edge-softmax (``kernels/edge_softmax.py``, a CUDA kernel on the card)
 and its writeback profile, which the kernel counts as it writes alpha,
@@ -87,14 +96,81 @@ def ell_when(want: torch.Tensor, x: torch.Tensor, rmax: int
     return mask_ell(formats.dense_to_ell(x, rmax=rmax), want)
 
 
+class BlockMatmulFn(torch.autograd.Function):
+    """``x @ y`` through one ``dispatch`` launch over the code grid, with
+    the reference's masked VJP as two more ``dispatch`` launches:
+
+    * ``dx = block_matmul(g, y.T, codes.permute(0, 2, 1), (bm, bn, bk))``
+    * ``dy = block_matmul(x.T, g, codes.permute(2, 1, 0), (bk, bm, bn))``
+
+    each cut to its operand's shape and cast to its dtype.  A block step
+    (i, j, k) that the forward SKIPped adds nothing to dx[i, k] or dy[k,
+    j], as in the reference, so dx is exactly 0 in a block that every
+    step SKIPped even where the dense ``g @ y.T`` is not.  ``g`` is cast
+    to the operands' type (bf16 cotangents of a bf16 result are exact).
+    The transposed operands are materialised by the kernel's wrapper:
+    ``y.T`` costs one copy of y (d_model x d_ff bf16, 32 MiB for a
+    llama3.2-1b FFN weight), ``x.T`` one copy of the activations."""
+
+    @staticmethod
+    def forward(ctx, x, y, codes, block):
+        m, n = x.shape[0], y.shape[1]
+        ctx.save_for_backward(x, y, codes)
+        ctx.block = block
+        return _dispatch.block_matmul(x, y, codes, block,
+                                      pad_rows=False)[:m, :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, codes = ctx.saved_tensors
+        bm, bk, bn = ctx.block
+        # The forward's SPDMM/SPMM codes name which FORWARD operand is
+        # sparse; after the transpose it is another one.  Every non-SKIP
+        # step computes the same value for finite operands, so the
+        # backward grids hold GEMM wherever the forward ran a step.
+        run = torch.where(codes != Primitive.SKIP, int(Primitive.GEMM),
+                          int(Primitive.SKIP)).to(torch.int32)
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = _dispatch.block_matmul(
+                g.to(y.dtype), y.T, run.permute(0, 2, 1).contiguous(),
+                (bm, bn, bk), pad_rows=False)
+            dx = dx[:x.shape[0], :x.shape[1]].to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dy = _dispatch.block_matmul(
+                x.T, g.to(x.dtype), run.permute(2, 1, 0).contiguous(),
+                (bk, bm, bn), pad_rows=False)
+            dy = dy[:y.shape[0], :y.shape[1]].to(y.dtype)
+        return dx, dy, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check_backward_block(block: Tuple[int, int, int]) -> None:
+    """The backward's grids are the forward's at (bm, bn, bk) and (bk, bm,
+    bn); on CUDA every edge must then suit the kernel's row and column
+    edges (``dispatch.BLOCK_EDGES``)."""
+    if any(b not in _dispatch.BLOCK_EDGES for b in block):
+        raise ValueError(f"dynasparse_matmul: block {block} has no backward "
+                         "on the dispatch kernel (its permuted grids need "
+                         f"every edge in {_dispatch.BLOCK_EDGES})")
+
+
 def _block_path(x, y, codes, block, static, out, skip) -> torch.Tensor:
     """The float32 product through the route the strategy and the operand
     type fix: a float32 static strategy runs one ``gemm`` or ``spdmm``
     launch, anything else (bf16 static grids included) the ``dispatch``
-    walk of ``codes``."""
+    walk of ``codes``, through :class:`BlockMatmulFn` when a gradient is
+    wanted."""
     m, n = x.shape[0], y.shape[1]
     if torch.bfloat16 in (x.dtype, y.dtype):
         static = None       # the bf16 dispatch walks the constant grid
+    if static is None and out is None and _needs_grad(x, y):
+        if y.is_cuda:
+            _check_backward_block(block)
+        return BlockMatmulFn.apply(x, y, codes, block)
     if static == Primitive.GEMM:
         bm, bk, bn = block
         full = _gemm.gemm(_dispatch.pad_to(x, bm, bk).contiguous(),
@@ -144,9 +220,9 @@ def dynasparse_matmul(
     m, n = x.shape[0], y.shape[1]
     bm, bk, bn = block
     if dens_x is None:
-        dens_x = profiler.block_density(x, (bm, bk))
+        dens_x = profiler.block_density(x.detach(), (bm, bk))
     if dens_y is None:
-        dens_y = profiler.block_density(y, (bk, bn))
+        dens_y = profiler.block_density(y.detach(), (bk, bn))
     if codes is None:
         codes = analyzer.plan_codes(strategy, dens_x, dens_y, cost_model,
                                     kernel_type=kernel_type)
@@ -192,7 +268,7 @@ def dynasparse_matmul(
     out = out.contiguous()
 
     ob = out_block or (bm, bn)
-    out_counts = profiler.block_counts(out, ob)
+    out_counts = profiler.block_counts(out.detach(), ob)
     out_density = profiler.density_from_counts(out_counts, m, n, *ob)
     return DynasparseResult(out, codes, dens_x, dens_y, out_density,
                             out_counts, executed_fmt)

@@ -1,1 +1,1 @@
-"""Graph data of the port."""
+"""Data of the port: graphs, samplers and the token pipeline."""

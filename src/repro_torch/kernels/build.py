@@ -133,6 +133,18 @@ def require_aligned(name: str, t, align: int = 16) -> None:
                          f"{align}-byte aligned")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` requires a
+    gradient: the kernel writes its result through raw pointers, so the
+    result would carry no autograd graph and the gradient would be lost
+    without a word.  Only ``dispatch`` has a backward (the
+    ``torch.autograd.Function`` in ``core/dynasparse.py``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: the kernel has no backward; call it "
+                         "under torch.no_grad() or on tensors that require "
+                         "no gradient")
+
+
 def require(name: str, t, dtype) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``."""
     if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():

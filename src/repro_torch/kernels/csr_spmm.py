@@ -172,6 +172,7 @@ def csr_spmm(vals: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor,
     and ``y`` has fewer than 2^32 elements."""
     if not y.is_cuda:
         return csr_spmm_plain(vals, cols, counts, y, out=out, run=run)
+    build.refuse_grad("csr_spmm", vals, y)
     global launches
     m, rmax = vals.shape
     n = y.shape[1]

@@ -257,6 +257,7 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
     if not y.is_cuda:
         return block_matmul_plain(x, y, codes, block, out=out, skip=skip,
                                   pad_rows=pad_rows)
+    build.refuse_grad("block_matmul", x, y)
     bm, bk, bn, I, J, K = _shapes(x, y, codes, block)
     if bm not in BLOCK_EDGES or bn not in BLOCK_EDGES or bk % TILE:
         raise ValueError(f"block_matmul: block {block} not supported by the "

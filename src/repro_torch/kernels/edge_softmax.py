@@ -125,6 +125,7 @@ def edge_softmax(a: torch.Tensor, z: torch.Tensor, att_src: torch.Tensor,
     if not a.is_cuda:
         return edge_softmax_plain(a, z, att_src, att_dst, slope=slope,
                                   threshold=threshold, out_block=out_block)
+    build.refuse_grad("edge_softmax", a, z, att_src, att_dst)
     global launches
     n, f = check_shapes(a, z, att_src, att_dst)
     bm, bn = out_block

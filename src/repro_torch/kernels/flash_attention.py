@@ -16,7 +16,8 @@ aligned to the end of the kv sequence, kv blocks strictly in the future of
 a whole ``bq``-block never processed, masked scores at -1e30 (a row whose
 processed keys are all masked averages them uniformly) and the output
 divided by ``max(l, 1e-30)``.  Forward only: the reference kernel has no
-VJP either.
+VJP either, so the wrapper refuses a gradient on both devices (the plain
+version itself stays differentiable, for the checks).
 """
 from __future__ import annotations
 
@@ -86,6 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of its type (bfloat16: tensor cores; float32: FMA units), D in
     16/32/64/128, or raises.
     """
+    build.refuse_grad("flash_attention", q, k, v)   # on both devices
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
     global launches

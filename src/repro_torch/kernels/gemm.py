@@ -41,6 +41,7 @@ def gemm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """
     if not x.is_cuda:
         return gemm_plain(x, y)
+    build.refuse_grad("gemm", x, y)
     global launches
     (m, k), (k2, n) = x.shape, y.shape
     if k != k2 or m % 16 or k % 16 or n % 16:

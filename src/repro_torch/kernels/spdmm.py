@@ -131,6 +131,7 @@ def spdmm(x: BlockCSRMatrix, y: torch.Tensor) -> torch.Tensor:
     16).contiguous()``, whose rows are whole 16-byte words."""
     if not y.is_cuda:
         return spdmm_plain(x, y)
+    build.refuse_grad("spdmm", x.blocks, y)
     global launches
     _check_shapes(x, y)
     tm, tk = x.tile

@@ -128,6 +128,7 @@ def spmm(x: BlockCSRMatrix, y: BlockCSCMatrix,
     aligned."""
     if not y.blocks.is_cuda:
         return spmm_plain(x, y, plan)
+    build.refuse_grad("spmm", x.blocks, y.blocks)
     global launches
     tm, tk = x.tile
     tk2, tn = y.tile

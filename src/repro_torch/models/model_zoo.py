@@ -4,7 +4,9 @@ Port of ``repro.models.model_zoo``.  ``build(cfg, device)`` returns init /
 loss / prefill / decode closures dispatching on the family (decoder-only
 or encoder-decoder), on one device: the card unless the caller passes
 ``device="cpu"``.  :func:`params_from_reference` carries a JAX param
-pytree (as numpy arrays) into the port's layout.
+pytree (as numpy arrays) into the port's layout; :func:`decay_mask` gives
+each port leaf the weight-decay decision the reference's AdamW takes on
+its own layout.
 """
 from __future__ import annotations
 
@@ -144,3 +146,28 @@ def params_from_reference(params_np: Mapping, cfg: ModelConfig,
     dev = resolve(device)
     like = _module(cfg).init_params(cfg, META)
     return _convert(_unstack(params_np), like, dev, "")
+
+
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def decay_mask(cfg: ModelConfig) -> Dict:
+    """Per leaf of the port's params, whether the reference's AdamW decays
+    it: ``p.ndim >= 2`` in the reference's layout.  Under ``scan_layers``
+    (the default) every leaf of ``layers`` (the reference's ``stack``) and
+    of ``enc_layers``/``dec_layers`` (``enc_stack``/``dec_stack``) carries
+    a leading layer axis there, so a layer's norm scales and biases are
+    decayed; ``dense_first`` layers, the final norms and the embeddings
+    keep their own shapes.  Built from the params on the meta device: no
+    device is touched."""
+    like = _module(cfg).init_params(cfg, META)
+
+    def mark(tree, extra):
+        if isinstance(tree, Mapping):
+            return {k: mark(v, extra) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [mark(v, extra) for v in tree]
+        return tree.ndim + extra >= 2
+
+    return {k: mark(v, int(cfg.scan_layers and k in STACKED))
+            for k, v in like.items()}

@@ -1228,3 +1228,135 @@ def test_prune_ffn_on_the_card_equals_the_cpu(cuda, density):
         for key, j, path in group:
             assert torch.equal(serve._get(got[key][j], path).cpu(),
                                serve._get(want[key][j], path))
+
+
+# ---------------------------------------------------------------- training
+
+def _grad_operands(m, k, n, block, dtype, device, seed=21):
+    """x, w with a zero block planted in each (SKIP codes), and a
+    cotangent g, on ``device``."""
+    bm, bk, bn = block
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
+    x[:bm, bk:2 * bk] = 0
+    w[:bk, bn:2 * bn] = 0
+    g = rng.normal(size=(m, n)).astype(np.float32)
+    return (torch.from_numpy(x).to(device, dtype),
+            torch.from_numpy(w).to(device, dtype),
+            torch.from_numpy(g).to(device))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,block", [
+    ((300, 512, 768), (256, 256, 256)), ((100, 96, 80), (32, 32, 32)),
+    ((40, 160, 300), (16, 64, 128))])
+def test_dispatch_backward_matches_autograd_of_the_plain_version(
+        cuda, dtype, tol, shape, block):
+    """The Function's dx and dw (two dispatch launches over the permuted
+    grids) against autograd through ``block_matmul_plain`` on the card;
+    dx exactly 0 where the forward SKIPped every step."""
+    from repro_torch.core import analyzer, dynasparse, profiler
+    from repro_torch.core.perf_model import TPUCostModel
+
+    bm, bk, bn = block
+    x, w, g = _grad_operands(*shape, block, dtype, cuda)
+    codes = analyzer.plan_codes(
+        "dynamic", profiler.block_density(x, (bm, bk)),
+        profiler.block_density(w, (bk, bn)), TPUCostModel())
+    m, n = x.shape[0], w.shape[1]
+    grads = []
+    for route in ("kernel", "plain"):
+        xs, ws = (x.clone().requires_grad_(), w.clone().requires_grad_())
+        K.reset_launch_counts()
+        if route == "kernel":
+            out = dynasparse.BlockMatmulFn.apply(xs, ws, codes, block)
+        else:
+            out = dispatch.block_matmul_plain(xs, ws, codes, block,
+                                              pad_rows=False)[:m, :n]
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["dispatch"] == (3 if route == "kernel"
+                                                 else 0)
+        grads.append((xs.grad, ws.grad))
+    for got, want in zip(grads[0], grads[1]):
+        assert got.dtype == dtype
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= tol, err
+    assert torch.all(grads[0][0][:bm, bk:2 * bk] == 0)
+    assert torch.all(grads[0][1][:bk, bn:2 * bn] == 0)
+
+
+def test_cuda_routes_without_backward_refuse_a_gradient(cuda):
+    """float32 static gemm/spdmm, the row-CSR route, edge_softmax, flash
+    and a direct dispatch launch raise under grad instead of returning a
+    result with no graph."""
+    from repro_torch.core import dynasparse
+    from repro_torch.core.ir import KernelType
+
+    x = torch.randn(64, 48, device=cuda).requires_grad_()
+    y = torch.randn(48, 32, device=cuda)
+    for strategy in ("gemm", "s2"):
+        with pytest.raises(ValueError, match="no backward"):
+            dynasparse.dynasparse_matmul(x, y, strategy=strategy,
+                                         block=(16, 16, 16))
+    with pytest.raises(ValueError, match="no backward"):
+        dynasparse.dynasparse_matmul(
+            x, y, block=(16, 16, 16), format_aware=True,
+            kernel_type=KernelType.AGGREGATE,
+            fmt=torch.ones((), dtype=torch.int32, device=cuda))
+    codes = torch.ones((4, 2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        dispatch.block_matmul(x, y, codes, (16, 16, 16))
+    a = (torch.rand(32, 32, device=cuda) < 0.3).float().requires_grad_()
+    z = torch.randn(32, 8, device=cuda)
+    att = torch.randn(8, 1, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.edge_softmax(a, z, att, att)
+    q = torch.randn(1, 2, 16, 16, device=cuda).requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_attention(q, q.detach(), q.detach(), causal=True)
+    with torch.no_grad():
+        dynasparse.dynasparse_matmul(x, y, strategy="gemm",
+                                     block=(16, 16, 16))
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(cuda, dyn):
+    """Two float32 steps of the smoke llama (dynasparse FFN on: its
+    backward on the dispatch kernel) on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import model_zoo
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    cfg = dataclasses.replace(_lm_cfg("llama3.2-1b", d_model=256,
+                                      n_layers=2), dynasparse_ffn=dyn)
+    pipe = TokenPipeline(cfg.vocab_size, 2, 64)
+    outs = []
+    for dev in ("cpu", cuda):
+        bundle = model_zoo.build(cfg, device=dev)
+        opt = AdamW(lr=1e-3, warmup_steps=1)
+        step = make_train_step(bundle.loss_fn, opt,
+                               decay=model_zoo.decay_mask(cfg))
+        params = _on(model_zoo.build(cfg, device="cpu").init_params(3), dev)
+        state = TrainState(params, opt.init(params))
+        K.reset_launch_counts()
+        for s in range(2):
+            b = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in pipe.batch_for_step(s).items()}
+            state, m = step(state, b)
+        outs.append((float(m["loss"]), float(m["grad_norm"]),
+                     [t.cpu() for t in tree_lib.flatten(state.params)[0]],
+                     K.launch_counts()["dispatch"]))
+    (l0, g0, p0, _), (l1, g1, p1, launches) = outs
+    assert abs(l0 - l1) <= 1e-4 * abs(l0) and abs(g0 - g1) <= 1e-3 * g0
+    # 2 layers x 3 FFN products: one forward and two backward launches
+    assert launches == (2 * 6 * 3 if dyn else 0)
+    for a, b in zip(p0, p1):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

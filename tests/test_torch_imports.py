@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-entry points refuse to run on the CPU unless asked to."""
+"""The port stands alone: it imports neither jax, nor the JAX package, nor
+ml_dtypes (absent on the machine with the card), and its entry points refuse
+to run on the CPU unless asked to."""
 import os
 import re
 import subprocess
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.M)
 
 
 def _port_modules():
@@ -204,3 +206,64 @@ def test_a_mesh_of_cards_needs_the_cards():
         pytest.skip("a CUDA device is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sharding.cores_mesh(2, device="cuda")
+
+
+TRAINING_SLICE = {
+    "repro_torch.data.tokens": "TokenPipeline",
+    "repro_torch.train.tree": "flatten unflatten flatten_up_to tree_map "
+                              "describe",
+    "repro_torch.train.optimizer": "AdamW AdamWState Quantized _quantize "
+                                   "_dequantize global_norm",
+    "repro_torch.train.checkpoint": "save save_async wait latest_step "
+                                    "restore gc_old",
+    "repro_torch.train.trainer": "TrainState make_train_step Trainer",
+    "repro_torch.launch.train": "main",
+    "repro_torch.core.dynasparse": "BlockMatmulFn",
+    "repro_torch.models.model_zoo": "decay_mask"}
+
+
+def test_training_slice_imports_no_jax():
+    """The training slice (``train/*``, ``data/tokens.py``,
+    ``launch/train.py``, the dispatch backward, the decay mask) lives in
+    the port and pulls in neither jax, nor the JAX package, nor ml_dtypes:
+    one fresh process imports all of it."""
+    code = (
+        "import importlib, sys\n"
+        f"for name, names in {TRAINING_SLICE!r}.items():\n"
+        "    m = importlib.import_module(name)\n"
+        "    missing = [n for n in names.split() if not hasattr(m, n)]\n"
+        "    assert not missing, (name, missing)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', "
+        "'repro', 'ml_dtypes')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_training_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
+    """``launch.train.main`` runs on the card by default and raises without
+    one; ``model_zoo.decay_mask`` takes no device (it reads the params'
+    shapes on the meta device), so it works on any machine."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo
+
+    mask = model_zoo.decay_mask(smoke_config("llama3.2-1b"))
+    assert mask["embed"] is True
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--device", "cuda"])
+    trainer = train.main(["--steps", "1", "--device", "cpu", "--n-layers",
+                          "1", "--ckpt-dir", str(tmp_path)])
+    assert trainer.step == 1
+    assert tree_devices(trainer.state) == {"cpu"}
+
+
+def tree_devices(tree):
+    from repro_torch.train import tree as tree_lib
+    return {t.device.type for t in tree_lib.flatten(tree)[0]}
