@@ -94,7 +94,19 @@ card at the shapes its path gives it, then drives the port's paths:
   ``TokenPipeline`` (48 forward and 96 backward ``dispatch``, 144
   ``tile_nnz`` a step) and dense; ``launch/train.py`` with a failure at
   step 2 restarting from its step-2 checkpoint, equal to the
-  uninterrupted dense run.
+  uninterrupted dense run;
+* the dry run (phase 12): the int8 error-feedback gradient all-reduce
+  (``distributed.collectives``) over a one-rank NCCL group on a tree of
+  llama3.2-1b's full-width gradient shapes, timed beside its bytes-moved
+  bound, its mean and residual bitwise the same call on the CPU over a
+  gloo group; the padded ``kernels.ops.tile_nnz`` (one ``tile_nnz``
+  launch at 2047 x 8191, exact); the FLOPs ``FlopCounterMode`` counts for
+  llama3.2-1b's train_4k cost proxy and a prefill at 1 x 4096 tokens,
+  equal on the meta device and on the card, with the card's time and
+  TFLOP/s; then ``launch.dryrun.run_cell`` over the ten archs x four
+  shapes on the production 16x16 mesh (meta device: no storage), each
+  cell ``ok`` or ``skipped`` as ``cell_supported`` says, with every
+  argument and output leaf under a spec.
 
 bf16 operands run on the tensor-core routes of ``dispatch`` and
 ``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes
@@ -909,6 +921,9 @@ def main() -> int:
     # ---------------- phase 11: LM training (llama3.2-1b) ----------------
     train_counts = train_phase(torch, np, K, dev, card, kernel_entry)
 
+    # ---------------- phase 12: the dry run ------------------------------
+    padded_counts = dryrun_phase(torch, np, K, dev, card, kernel_entry)
+
     kernels_line["gemm"]["launches"] = main_counts["gemm"]
     kernels_line["spdmm"]["launches"] = main_counts["spdmm"]
     kernels_line["dispatch"]["launches"] = main_counts["dispatch"]
@@ -923,7 +938,9 @@ def main() -> int:
     kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
     kernels_line["tile_nnz_batched"]["launches"] = \
         serve_counts["tile_nnz_batched"]
-    check(set(K.launch_counts()) | {LM_DISPATCH, LM_DISPATCH_BWD}
+    kernels_line[PADDED_TILE_NNZ]["launches"] = padded_counts["tile_nnz"]
+    check(set(K.launch_counts()) | {LM_DISPATCH, LM_DISPATCH_BWD,
+                                    PADDED_TILE_NNZ}
           == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
@@ -4361,6 +4378,242 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     return {"backward_dispatch": sum(
         s["total"]["dispatch"] - s["forward"]["dispatch"]
         for s in logs[True])}
+
+
+# phase 12: the dry run.  (a) the int8 error-feedback all-reduce over a
+# one-rank NCCL group on a gradient-shaped tree of llama3.2-1b at full
+# width; (b) the padded ops.tile_nnz; (c) the meta count of a cell against
+# the same call counted on the card; (d) run_cell over the ten archs x
+# four shapes on the production 16x16 mesh
+ALLREDUCE_SEED, ALLREDUCE_RES = 0, 1e-2
+# (a)'s CPU twin runs on the leaves of layer 0 and the final norm (every
+# leaf kind: both projection orientations, the FFN, 1-D scales; 61 M of
+# the 1.236 G elements): on all 146 leaves it took 34.9 s of an H100
+# machine's host (chip_smoke.py on an H100 80GB HBM3, 700 W), all bitwise
+ALLREDUCE_CHECKED = (("layers", 0), ("final_norm",))
+# (c): llama3.2-1b's train_4k cost proxy (1 layer period, einsum attention)
+# and a prefill, at a batch the card holds: 1 x 4096 tokens
+COUNT_BATCH, COUNT_SEQ = 1, 4096
+PADDED_TILE_NNZ = "tile_nnz (ops.tile_nnz, padded)"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_phase(torch, np, K, dev, card, kernel_entry) -> dict:
+    """Phase 12: (a) ``compressed_grad_allreduce`` over a one-rank NCCL
+    group on random bf16 gradients of llama3.2-1b's full-width param
+    shapes (``model_zoo.abstract_params``) with a random float32 residual,
+    timed by CUDA events beside its bytes-moved bound, mean and residual
+    held bitwise to the same call on the CPU over a one-rank gloo group
+    on the leaves of ``ALLREDUCE_CHECKED``; (b) the padded ``ops.tile_nnz`` at 2047 x 8191 bf16 over (256,
+    256) tiles, one launch in its own window, exact; (c) the FLOPs that
+    ``FlopCounterMode`` counts for llama3.2-1b's train_4k cost proxy and
+    a prefill, on meta and on the card, equal, each timed; (d)
+    ``dryrun.run_cell`` over the ten archs x four shapes on the
+    production 16x16 mesh, each record ``ok`` or ``skipped`` as
+    ``cell_supported`` says, every leaf of every argument and output tree
+    under a spec.  Returns the launch counts of
+    (b)'s window."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, SHAPES, get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import cell_supported
+    from repro_torch.distributed import collectives, sharding, shardctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+
+    # ---- (a) the int8 all-reduce on the card --------------------------
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        cpu_group = dist.new_group(ranks=[0], backend="gloo")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(ALLREDUCE_SEED)
+        shapes = model_zoo.abstract_params(cfg)
+        grads = tree_lib.tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device=dev, dtype=torch.bfloat16),
+            shapes)
+        residual = tree_lib.tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device=dev) * ALLREDUCE_RES, shapes)
+        g_leaves = tree_lib.flatten(grads)[0]
+        elems = sum(g.numel() for g in g_leaves)
+
+        def reduce():
+            return collectives.compressed_grad_allreduce(grads, None,
+                                                         residual)
+
+        mean, new_res = reduce()
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, reduce, target_ms=300.0)
+        # each gradient (bf16) and residual (float32) read once, the mean
+        # (bf16) and the new residual (float32) written once
+        nbytes = 12.0 * elems
+        t0 = time.perf_counter()
+        same_mean = same_res = True
+        mismatched, checked = [], 0
+        for (path, g), r, m_, nr in zip(
+                tree_lib.flatten_with_path(grads),
+                tree_lib.flatten(residual)[0], tree_lib.flatten(mean)[0],
+                tree_lib.flatten(new_res)[0]):
+            if not any(path[:len(c)] == c for c in ALLREDUCE_CHECKED):
+                continue
+            checked += g.numel()
+            g_c, r_c = g.cpu(), r.cpu()
+            m_c, nr_c = collectives.compressed_grad_allreduce(
+                g_c, cpu_group, r_c)
+            eq_m = torch.equal(m_c, m_.cpu())
+            eq_r = torch.equal(nr_c, nr.cpu())
+            same_mean &= eq_m
+            same_res &= eq_r
+            if not (eq_m and eq_r):
+                mismatched.append(list(map(str, path)))
+        cpu_s = time.perf_counter() - t0
+        check(same_mean and same_res,
+              f"NCCL compressed all-reduce != CPU: {mismatched[:5]}")
+        record("dryrun_allreduce", arch=LM_ARCH, leaves=len(g_leaves),
+               elements=elems, grad_dtype="bfloat16",
+               residual_scale=ALLREDUCE_RES, mean_bitwise_cpu=same_mean,
+               residual_bitwise_cpu=same_res,
+               cpu_checked=[list(map(str, c)) for c in ALLREDUCE_CHECKED],
+               cpu_checked_elements=checked, ms=ms,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_bytes=nbytes,
+               cpu_check_s=cpu_s, group="nccl, 1 rank", card=card)
+        del grads, residual, mean, new_res, g_leaves
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - t_phase
+
+    # ---- (b) the padded ops.tile_nnz ------------------------------------
+    tile = (256, 256)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.randn((2047, 8191), generator=gen, device=dev).to(
+        torch.bfloat16)
+    x[torch.rand(x.shape, generator=gen, device=dev) < 0.5] = 0
+    x[:256, :1024] = 0                     # zero tiles
+    mb, nb = -(-x.shape[0] // tile[0]), -(-x.shape[1] // tile[1])
+    xp = K.dispatch.pad_to(x, *tile).contiguous()
+    K.reset_launch_counts()
+    counts = ops.tile_nnz(x, tile=tile)
+    torch.cuda.synchronize()
+    padded_counts = K.launch_counts()
+    check(padded_counts["tile_nnz"] == 1 and sum(padded_counts.values()) == 1,
+          f"ops.tile_nnz launched {padded_counts}")
+    check(tuple(counts.shape) == (mb, nb)
+          and torch.equal(counts.cpu(), ops.tile_nnz(x.cpu(), tile=tile))
+          and int(counts.sum()) == int(torch.count_nonzero(x)),
+          "ops.tile_nnz != its plain version")
+    kernel_entry(
+        PADDED_TILE_NNZ, "src/repro_torch/kernels/csrc/tile_nnz.cu",
+        "src/repro/kernels/ops.py:119",
+        lambda: ops.tile_nnz(x, tile=tile),
+        lambda: K.profile.tile_nnz_plain(xp, tile)[:mb, :nb],
+        lambda: torch.count_nonzero(xp.view(mb, tile[0], nb, tile[1]),
+                                    dim=(1, 3)),
+        (float(x.numel()), float(x.numel() * x.element_size()
+                                 + 4 * mb * nb)),
+        lambda g, w: True, units="simt",
+        lib_call=f"torch.count_nonzero(xp.view({mb}, 256, {nb}, 256), "
+                 "dim=(1, 3)) of x padded beforehand")
+    record("dryrun_padded_tile_nnz", shape=list(x.shape), tile=list(tile),
+           counts_shape=[mb, nb], launches=padded_counts, exact=True,
+           card=card)
+    del x, xp
+
+    # ---- (c) the meta count against the card's --------------------------
+    mesh = make_production_mesh()
+    shape = ShapeCfg("train_4k_1x4096", COUNT_SEQ, COUNT_BATCH, "train")
+    pcfg = dryrun._variant(cfg, SHAPES["train_4k"], mode="cost",
+                           n_periods=1)
+    meta = dryrun.build_cell(pcfg, shape, mesh)
+    bundle = model_zoo.build(pcfg, dev)
+    params = bundle.init_params(0)
+    opt = AdamW(state_dtype=pcfg.opt_state_dtype)
+    step = make_train_step(bundle.loss_fn, opt,
+                           decay=model_zoo.decay_mask(pcfg))
+    gen.manual_seed(13)
+    tok = torch.randint(0, cfg.vocab_size, (COUNT_BATCH, COUNT_SEQ),
+                        generator=gen, device=dev, dtype=torch.int32)
+    cases = {
+        "train": (meta.fn, meta.args,
+                  lambda: step(TrainState(params, opt.init(params)),
+                               {"tokens": tok, "labels": tok})),
+    }
+    pre = dryrun.build_cell(pcfg, ShapeCfg("prefill_1x4096", COUNT_SEQ,
+                                           COUNT_BATCH, "prefill"), mesh)
+    cases["prefill"] = (pre.fn, pre.args, lambda: bundle.prefill(
+        params, {"tokens": tok}, max_seq=COUNT_SEQ))
+    for name, (fn, args, card_fn) in cases.items():
+        on_meta = dryrun.count(fn, *args, mesh=mesh)
+        on_card = dryrun.count(card_fn, mesh=mesh)
+        torch.cuda.synchronize()
+        check(on_meta["flops"] == on_card["flops"],
+              f"{name}: meta counts {on_meta['flops']} FLOPs, the card "
+              f"{on_card['flops']}")
+        with shardctx.use_mesh(mesh):
+            ms = cuda_ms(torch, card_fn, target_ms=300.0)
+        record("dryrun_count", cell=name, arch=LM_ARCH, proxy_layers=
+               pcfg.n_layers, batch=COUNT_BATCH, seq=COUNT_SEQ,
+               flops_meta=on_meta["flops"], flops_card=on_card["flops"],
+               bytes_meta=on_meta["bytes"], bytes_card=on_card["bytes"],
+               ms=ms, achieved_tflops=on_card["flops"] / ms / 1e9,
+               peak_tflops=PEAK_BF16 / 1e12,
+               share_of_peak=on_card["flops"] / ms / 1e9 / (PEAK_BF16 / 1e12),
+               card=card)
+    del params, bundle, cases, meta, pre
+    torch.cuda.empty_cache()
+    c_s = time.perf_counter() - t_phase - a_s
+
+    # ---- (d) the sweep on the production mesh ---------------------------
+    t_sweep = time.perf_counter()
+    walls = {}
+    sweep = [(a, s) for a in sorted(ARCHS) for s in SHAPES]
+    for arch, shp in sweep:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shp, skip_memory_pass=False)
+        walls[f"{arch}|{shp}"] = time.perf_counter() - t0
+        if not cell_supported(arch, shp):
+            check(rec["status"] == "skipped", f"{arch} {shp}: {rec}")
+        else:
+            check(rec["status"] == "ok" and rec["flops_per_device"] > 0
+                  and rec["memory"]["argument_gib"] > 0,
+                  f"{arch} {shp}: {rec}")
+            cell = dryrun.build_cell(
+                dryrun._variant(get_arch(arch), SHAPES[shp], mode="memory"),
+                SHAPES[shp], mesh)
+            for tree, sh in ((cell.args, cell.in_shardings),
+                             (cell.outputs, cell.out_shardings)):
+                leaves, treedef = tree_lib.flatten(tree)
+                specs = tree_lib.flatten_up_to(treedef, sh)
+                check(len(specs) == len(leaves) and all(
+                    isinstance(s, sharding.NamedSharding)
+                    for s in specs), f"{arch} {shp}: a leaf without a spec")
+        record("dryrun_cell", **rec, host_wall_s=walls[f"{arch}|{shp}"],
+               card=card)
+    sweep_s = time.perf_counter() - t_sweep
+    record("dryrun_sweep", mesh="16x16", cells=len(sweep), host_wall_s=walls,
+           total_s=sweep_s, card=card)
+    record("phase", name="12 dry run",
+           seconds=time.perf_counter() - t_phase, allreduce_s=a_s,
+           count_s=c_s, sweep_s=sweep_s, card=card)
+    return padded_counts
 
 
 def wall_ms(torch, fn, n: int = 5) -> float:

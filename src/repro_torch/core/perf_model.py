@@ -111,6 +111,10 @@ class FPGACostModel:
             return self.spmm_cycles(m, n, d, a_x, a_y)
         raise ValueError(f"unknown primitive {primitive}")
 
+    def seconds(self, primitive: Primitive, m, n, d, a_x, a_y) -> ArrayLike:
+        """:meth:`cycles` at the accelerator clock ``freq_hz``."""
+        return _div(self.cycles(primitive, m, n, d, a_x, a_y), self.freq_hz)
+
     def select(self, a_x: float, a_y: float) -> Primitive:
         """Algorithm 7 for one partition pair, on the host."""
         a_min, a_max = min(a_x, a_y), max(a_x, a_y)

@@ -1,8 +1,9 @@
-"""The serving mesh: one device per Computation Core.
+"""Sharding rules: the serving mesh of the GNN path and the LM rules of
+the dry run.
 
-Port of the GNN part of ``repro.distributed.sharding`` (the LM rules come
-with the dry run).  Each device of a 1-D ``cores`` mesh plays one of the
-paper's Computation Cores and runs its own slice of an admission wave:
+Port of ``repro.distributed.sharding``.  The GNN part: each device of a
+1-D ``cores`` mesh plays one of the paper's Computation Cores and runs
+its own slice of an admission wave:
 
 * :class:`CoresMesh` -- a frozen tuple of ``torch.device`` over
   :data:`CORES_AXIS`; :func:`cores_mesh` builds one from the visible cards,
@@ -15,19 +16,37 @@ paper's Computation Cores and runs its own slice of an admission wave:
   wave's slots: device d of a D-lane group owns slots ``[d*B/D,
   (d+1)*B/D)``.  The executor walks each lane's range on its device and
   the engine places requests into those ranges.
+
+The LM part (FSDP + TP by construction, divisibility-guarded) gives each
+leaf of a param, optimizer-state, cache or batch tree its
+:class:`PartitionSpec` on a :class:`NamedMesh`, a device-free mesh of
+named axes (``launch.mesh``): every rank>=2 param leaf shards its LAST
+dim over ``model`` (its second-to-last for the row-parallel
+projections) and the other of the two over ``data``, whenever
+divisible; expert leaves under expert parallelism shard the expert dim
+over ``data``; caches shard the batch dim over (pod, data) and the
+minor-most divisible dim over ``model``.  Paths are the port's tree
+paths (``train.tree.flatten_with_path``: dict keys, list indices,
+NamedTuple fields).  Nothing is placed: one card holds every tensor
+whole, and the dry run reads the specs to count per-device bytes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import device as _device
+from repro_torch.train import tree as tree_lib
 
 __all__ = ["CORES_AXIS", "CoresMesh", "AbstractCoresMesh", "cores_mesh",
            "partition_devices", "partition_mesh", "abstract_cores_mesh",
-           "wave_slices", "shard_wave"]
+           "wave_slices", "shard_wave", "NamedMesh", "PartitionSpec", "P",
+           "NamedSharding", "batch_axes", "param_spec", "param_shardings",
+           "cache_spec", "cache_shardings", "batch_spec", "batch_shardings",
+           "replicated", "describe", "shard_bytes"]
 
 # the serving mesh axis: each device along it runs its own slice of a wave
 CORES_AXIS = "cores"
@@ -165,3 +184,207 @@ def shard_wave(batched: Dict[str, torch.Tensor], mesh: CoresMesh
     return [{name: v[sl].to(dev, non_blocking=True)
              for name, v in batched.items()}
             for dev, sl in zip(mesh.devices, wave_slices(b, mesh.size))]
+
+
+# --------------------------------------------------------------------------
+# The LM rules (the dry run's meshes of named axes)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """A device-free mesh: axis names and their sizes (``shape``), as the
+    reference's ``AbstractMesh``.  A mesh of 256 or 512 chips cannot be
+    real on one card, and the rules need none."""
+
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"mesh sizes {self.axis_sizes} for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+class PartitionSpec(tuple):
+    """Per dimension: ``None`` (replicated), a mesh axis name, or a tuple
+    of names (sharded over their product).  Dimensions past the spec's
+    length are replicated."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec({', '.join(map(repr, self))})"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement: its spec on a mesh."""
+
+    mesh: NamedMesh
+    spec: PartitionSpec
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _axsize(mesh, axes) -> int:
+    if isinstance(axes, str):
+        axes = (axes,)
+    out = 1
+    for a in axes:
+        out *= mesh.shape[a]
+    return out
+
+
+# Megatron convention: down/output projections are ROW-parallel (their
+# contraction dim -- the previous op's model-sharded output -- shards over
+# `model`); everything else is column-parallel.
+ROW_PARALLEL_NAMES = ("w2", "wo", "we2", "out_proj", "down", "dt_proj")
+
+
+def param_spec(mesh, shape: Tuple[int, ...],
+               row_parallel: bool = False) -> PartitionSpec:
+    if len(shape) < 2:
+        return P()
+    spec = [None] * len(shape)
+    model_n = _axsize(mesh, "model") if "model" in mesh.axis_names else 0
+    data_n = _axsize(mesh, "data") if "data" in mesh.axis_names else 0
+    mdim, ddim = (-2, -1) if row_parallel else (-1, -2)
+    if model_n > 1 and shape[mdim] % model_n == 0:
+        spec[mdim] = "model"
+    if data_n > 1 and shape[ddim] % data_n == 0:
+        spec[ddim] = "data"
+    elif model_n > 1 and spec[mdim] is None and shape[ddim] % model_n == 0:
+        spec[ddim] = "model"
+    return P(*spec)
+
+
+def _last_name(path) -> Optional[str]:
+    """The innermost key of ``path`` that names something: list indices
+    are skipped, and so are the ``q``/``s`` fields of a quantized
+    optimizer moment (``train.optimizer.Quantized``)."""
+    for k in reversed(path):
+        if isinstance(k, str) and k and k not in ("q", "s"):
+            return k
+    return None
+
+
+def _is_row_parallel(path) -> bool:
+    return _last_name(path) in ROW_PARALLEL_NAMES
+
+
+def _is_expert(path) -> bool:
+    return _last_name(path) in ("we1", "we2", "we3")
+
+
+def expert_param_spec(mesh, shape, row_parallel: bool) -> PartitionSpec:
+    """EP: experts over `data`, TP over `model` inside each expert."""
+    spec = [None] * len(shape)
+    data_n = _axsize(mesh, "data") if "data" in mesh.axis_names else 0
+    model_n = _axsize(mesh, "model") if "model" in mesh.axis_names else 0
+    edim = len(shape) - 3
+    if data_n > 1 and shape[edim] % data_n == 0:
+        spec[edim] = "data"
+    mdim = -2 if row_parallel else -1
+    if model_n > 1 and shape[mdim] % model_n == 0:
+        spec[mdim] = "model"
+    return P(*spec)
+
+
+def param_shardings(mesh, params, *, ep_experts: bool = False) -> Any:
+    """A :class:`NamedSharding` for every leaf of ``params`` (anything with
+    a ``shape``: tensors, meta tensors), in its structure."""
+    def leaf(path, x):
+        shape = tuple(x.shape)
+        row = _is_row_parallel(path)
+        if ep_experts and _is_expert(path) and len(shape) >= 3:
+            return NamedSharding(mesh, expert_param_spec(mesh, shape, row))
+        return NamedSharding(mesh, param_spec(mesh, shape,
+                                              row_parallel=row))
+    return tree_lib.tree_map_with_path(leaf, params)
+
+
+def cache_spec(mesh, shape: Tuple[int, ...], batch: int) -> PartitionSpec:
+    spec = [None] * len(shape)
+    ba = batch_axes(mesh)
+    bn = _axsize(mesh, ba) if ba else 0
+    model_n = _axsize(mesh, "model") if "model" in mesh.axis_names else 0
+    # the batch dim: the first dim equal to the global batch among the
+    # first two (a stacked layout leads with its layer dim)
+    bdim = None
+    for d, sz in enumerate(shape):
+        if sz == batch and d <= 1:
+            bdim = d
+            break
+    if bdim is not None and bn > 1 and batch % bn == 0:
+        spec[bdim] = ba if len(ba) > 1 else ba[0]
+    if model_n > 1:
+        # the MINOR-most divisible dim (head_dim / MLA latent / d_inner):
+        # decode writes one token per step along seq
+        cands = [d for d, sz in enumerate(shape)
+                 if spec[d] is None and d != 0 and sz % model_n == 0]
+        if cands:
+            spec[cands[-1]] = "model"
+    return P(*spec)
+
+
+def cache_shardings(mesh, caches, batch: int) -> Any:
+    return tree_lib.tree_map(
+        lambda x: NamedSharding(mesh, cache_spec(mesh, tuple(x.shape),
+                                                 batch)), caches)
+
+
+def batch_spec(mesh, shape: Tuple[int, ...], batch: int) -> PartitionSpec:
+    if not shape or shape[0] != batch:
+        return P()
+    ba = batch_axes(mesh)
+    bn = _axsize(mesh, ba)
+    if bn > 1 and batch % bn == 0:
+        return P(ba if len(ba) > 1 else ba[0])
+    return P()
+
+
+def batch_shardings(mesh, batch_tree, batch: int) -> Any:
+    return tree_lib.tree_map(
+        lambda x: NamedSharding(mesh, batch_spec(mesh, tuple(x.shape),
+                                                 batch)), batch_tree)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def _keystr(path) -> str:
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
+def describe(shardings, max_lines: int = 0) -> str:
+    """Report helper: ``path: spec``, one line per leaf."""
+    lines = [f"{_keystr(path)}: {s.spec}"
+             for path, s in tree_lib.flatten_with_path(shardings)]
+    if max_lines:
+        lines = lines[:max_lines]
+    return "\n".join(lines)
+
+
+def shard_bytes(x, sharding: NamedSharding) -> float:
+    """Bytes of ``x``'s shard on one device under ``sharding``: its bytes
+    over the product of the sizes of the axes its spec names (the rules
+    shard a dimension only where it divides)."""
+    nbytes = x.numel() * x.element_size()
+    return nbytes / math.prod(_axsize(sharding.mesh, d)
+                              for d in sharding.spec if d is not None)

@@ -20,6 +20,7 @@ from repro_torch.kernels import csr_spmm as _csr
 from repro_torch.kernels import edge_softmax as _edge
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import profile as _profile
 from repro_torch.kernels import spdmm as _spdmm
 from repro_torch.kernels import spmm as _spmm
 from repro_torch.kernels.dispatch import pad_to
@@ -86,6 +87,17 @@ def matmul(x: torch.Tensor, y: torch.Tensor, primitive: Primitive, *,
     if primitive == Primitive.SPMM:
         return spmm(x, y, tile=tile)
     raise ValueError(f"unknown primitive {primitive}")
+
+
+def tile_nnz(x: torch.Tensor, *, tile: Tuple[int, int] = (128, 128)
+             ) -> torch.Tensor:
+    """Per-tile nonzero counts (the profiling fused at writeback): pads
+    ``x`` with zeros to tile multiples, counts with one ``tile_nnz``
+    launch (a CUDA tensor) or its plain version (a CPU tensor), and crops
+    to (ceil(M/tm), ceil(N/tn)).  The padding adds no nonzero, so the
+    counts are those of the ragged tiles."""
+    mb, nb = -(-x.shape[0] // tile[0]), -(-x.shape[1] // tile[1])
+    return _profile.tile_nnz(pad_to(x, *tile), tile)[:mb, :nb]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,10 +8,13 @@ config of the arch; ``--full`` trains ``get_arch(arch)`` at full width on
 the one card), with the deterministic resumable data pipeline, the
 microbatched step, async checkpoints, restart-on-failure (``--fail-at``)
 and straggler accounting.  Runs on the GPU unless ``--device cpu``, and
-raises without a card.  The reference's mesh, its param shardings and
-``shardctx.use_mesh`` have no counterpart on one device (they wait for
-the LM sharding rules); ``remat`` has none either (``models/
-transformer.py``): llama3.2-1b trains without it on one 80 GB card.
+raises without a card.  As in the reference, the run takes a mesh (the
+``(n_devices, 1)`` data-parallel mesh of its one device; ``--full``: the
+production 16x16 mesh), the params' shardings on it and
+``shardctx.use_mesh``, under which the attention picks the reference's
+GQA form; the port places nothing (one card holds every tensor whole).
+``remat`` has no counterpart (``models/transformer.py``): llama3.2-1b
+trains without it on one 80 GB card.
 
 ``main`` returns the :class:`Trainer`, so a caller can read the final
 state.
@@ -25,8 +28,12 @@ import torch
 
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.distributed import sharding, shardctx
+from repro_torch.distributed.sharding import NamedMesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model_zoo
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import tree as tree_lib
 from repro_torch.train.optimizer import AdamW
 from repro_torch.train.trainer import Trainer, TrainState, make_train_step
 
@@ -54,6 +61,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
     if args.full:
         cfg = get_arch(args.arch)
+        mesh = make_production_mesh()
     else:
         over = {}
         if args.d_model:
@@ -67,6 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
             period = get_arch(args.arch).layer_period
             over["n_layers"] = max(period, args.n_layers // period * period)
         cfg = smoke_config(args.arch, **over)
+        mesh = NamedMesh((1, 1), ("data", "model"))   # one device
 
     bundle = model_zoo.build(cfg, device=args.device)
     dev = bundle.device
@@ -76,6 +85,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                               num_microbatches=args.microbatches,
                               decay=model_zoo.decay_mask(cfg))
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
+
+    pshard = tree_lib.flatten(sharding.param_shardings(
+        mesh, model_zoo.abstract_params(cfg)))[0]
+    sharded = sum(any(s.spec) for s in pshard)
 
     def init():
         params = bundle.init_params(0)
@@ -92,19 +105,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                    "labels": out["labels"][:, : args.seq // 4]}
         return out
 
-    trainer = Trainer(step_fn, batch_for_step, init(),
-                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                      failure_at_step=args.fail_at)
-    resumed = trainer.maybe_restore()
-    print(f"arch={cfg.name} params={cfg.total_params()/1e6:.1f}M "
-          f"devices=1 resumed={resumed} step={trainer.step}")
-    try:
-        metrics = trainer.run(args.steps - trainer.step)
-    except RuntimeError as e:
-        print(f"FAILURE: {e}; restarting from last checkpoint...")
-        trainer.maybe_restore()
-        metrics = trainer.run(args.steps - trainer.step)
-    ckpt_lib.wait()
+    with shardctx.use_mesh(mesh):
+        trainer = Trainer(step_fn, batch_for_step, init(),
+                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                          failure_at_step=args.fail_at)
+        resumed = trainer.maybe_restore()
+        print(f"arch={cfg.name} params={cfg.total_params()/1e6:.1f}M "
+              f"devices=1 resumed={resumed} step={trainer.step}")
+        print(f"mesh={'x'.join(map(str, mesh.axis_sizes))} "
+              f"sharded_leaves={sharded}/{len(pshard)}")
+        try:
+            metrics = trainer.run(args.steps - trainer.step)
+        except RuntimeError as e:
+            print(f"FAILURE: {e}; restarting from last checkpoint...")
+            trainer.maybe_restore()
+            metrics = trainer.run(args.steps - trainer.step)
+        ckpt_lib.wait()
     print(f"done: {metrics} straggler_events={trainer.straggler_events}")
     return trainer
 

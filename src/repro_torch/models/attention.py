@@ -4,7 +4,10 @@ Port of ``repro.models.attention``.  Layouts are the reference's: q (B,
 Sq, H, hd), k/v (B, Skv, G, hd) with H = G * rep.
 
 * ``einsum``  -- full (Sq x Skv) scores; the prefill branch repeats the
-  GQA kv heads, the decode branch (Sq == 1) attends grouped;
+  GQA kv heads, the grouped branch attends without the repeat: decode
+  (Sq == 1), and any Sq when the head count does not divide the mesh's
+  ``model`` axis (``shardctx.axis_size``, 1 outside ``use_mesh``), as
+  in the reference;
 * ``chunked`` -- a loop over query chunks of ``cfg.attn_chunk``, each with
   masked full-length scores;
 * ``flash``   -- the CUDA kernel through ``kernels.ops.flash_attention``;
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.shardctx import axis_size
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (Gen, apply_rope, device_of, randn,
                                       rmsnorm, rope_tables)
@@ -48,8 +52,9 @@ def _attend_einsum(q, k, v, *, causal: bool, kv_len: Optional[int],
         mask = kpos[None, :] <= qpos
     if kv_len is not None:
         mask = mask & (kpos[None, :] < kv_len)
-    if sq > 1:
-        # prefill: repeat the GQA kv heads to full H
+    if sq > 1 and h % max(axis_size("model"), 1) == 0:
+        # train/prefill with heads that divide the tensor-parallel size:
+        # repeat the GQA kv heads to full H
         if g != h:
             k = k.repeat_interleave(h // g, dim=2)
             v = v.repeat_interleave(h // g, dim=2)
@@ -58,7 +63,8 @@ def _attend_einsum(q, k, v, *, causal: bool, kv_len: Optional[int],
         p = torch.softmax(s, dim=-1).to(q.dtype)
         o = torch.einsum("bhqk,bkhv->bqhv", p, v)
         return o.reshape(b, sq, h, v.shape[-1])
-    # decode: grouped form, no GQA repeat
+    # decode, and heads that do not divide the model axis: grouped form,
+    # no GQA repeat
     qg = q.reshape(b, sq, g, h // g, hd)
     s = torch.einsum("bqgrh,bkgh->bgrqk", qg, k).float() * scale
     s = torch.where(mask[None, None, None], s, NEG)

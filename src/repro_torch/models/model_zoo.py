@@ -3,10 +3,14 @@
 Port of ``repro.models.model_zoo``.  ``build(cfg, device)`` returns init /
 loss / prefill / decode closures dispatching on the family (decoder-only
 or encoder-decoder), on one device: the card unless the caller passes
-``device="cpu"``.  :func:`params_from_reference` carries a JAX param
-pytree (as numpy arrays) into the port's layout; :func:`decay_mask` gives
-each port leaf the weight-decay decision the reference's AdamW takes on
-its own layout.
+``device="cpu"`` (or ``"meta"``, where ``init_params`` raises: the meta
+device has no generator; :func:`abstract_params` builds that tree).
+:func:`input_specs`, :func:`abstract_params` and :func:`abstract_caches`
+give a cell's trees on the meta device, for the dry run.
+:func:`params_from_reference` carries a JAX param pytree (as numpy
+arrays) into the port's layout; :func:`decay_mask` gives each port leaf
+the weight-decay decision the reference's AdamW takes on its own
+layout.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from typing import Any, Callable, Dict, Mapping, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import META
@@ -82,6 +86,56 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
     )
 
 
+# --------------------------------------------------------------------------
+# Abstract trees: every input, param and cache of a cell on the meta device
+# (shapes and dtypes, no storage)
+# --------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> Dict[str, Any]:
+    """The inputs of an (arch x shape) cell as meta tensors, with the
+    reference's shapes and dtypes (int32 tokens).
+
+    train:   {tokens, labels [, frames]}
+    prefill: {tokens [, frames]}
+    decode:  {tokens (B, 1), pos ()} -- the caches come from
+             :func:`abstract_caches`.
+    Whisper's decoder runs ``max(S // dec_ratio, 64)`` tokens against S
+    frames.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": _meta((b, 1), i32), "pos": _meta((), i32)}
+    if cfg.encdec is not None:
+        dec = max(s // cfg.encdec.dec_ratio, 64)
+        out = {"frames": _meta((b, s, cfg.d_model), cfg.jdtype),
+               "tokens": _meta((b, dec), i32)}
+        if shape.kind == "train":
+            out["labels"] = _meta((b, dec), i32)
+        return out
+    out = {"tokens": _meta((b, s), i32)}
+    if shape.kind == "train":
+        out["labels"] = _meta((b, s), i32)
+    return out
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The params of ``cfg`` on the meta device, built without a
+    ``torch.Generator`` (there is none for the meta device)."""
+    return _module(cfg).init_params(cfg, META)
+
+
+def abstract_caches(cfg: ModelConfig, shape: ShapeCfg) -> Dict:
+    """The decode caches of a cell on the meta device: ``global_batch``
+    sequences of ``seq_len`` (whisper's cross caches over
+    ``encdec.ENC_DECODE_LEN`` frames, as the reference's)."""
+    return build(cfg, META).init_caches(shape.global_batch, shape.seq_len)
+
+
 def _take(tree: Any, i: int) -> Any:
     """Entry ``i`` of every leaf's leading (stacked) axis."""
     if isinstance(tree, Mapping):
@@ -144,8 +198,7 @@ def params_from_reference(params_np: Mapping, cfg: ModelConfig,
     the meta device.
     """
     dev = resolve(device)
-    like = _module(cfg).init_params(cfg, META)
-    return _convert(_unstack(params_np), like, dev, "")
+    return _convert(_unstack(params_np), abstract_params(cfg), dev, "")
 
 
 STACKED = ("layers", "enc_layers", "dec_layers")
@@ -160,7 +213,7 @@ def decay_mask(cfg: ModelConfig) -> Dict:
     decayed; ``dense_first`` layers, the final norms and the embeddings
     keep their own shapes.  Built from the params on the meta device: no
     device is touched."""
-    like = _module(cfg).init_params(cfg, META)
+    like = abstract_params(cfg)
 
     def mark(tree, extra):
         if isinstance(tree, Mapping):

@@ -9,12 +9,17 @@ and is chunked over queries; prefill rebuilds the recurrent state from
 the full pass, and decode is the exact recurrence over (C, n, m).
 
 sLSTM: scalar memory with a per-head block-diagonal recurrence, run step
-by step over time.
+by step over time.  Under :func:`recurrence_counted_once` (the dry run's
+counting on the meta device) the loop runs its first step only and that
+step's output stands for every step: the reference's counts come from
+XLA's cost analysis, which counts a scan's body once.
 
 Recurrent states are written back into the cache dicts given, in place.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -22,6 +27,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Gen, device_of, randn, rmsnorm
+
+
+_ONE_STEP = contextvars.ContextVar("slstm_one_step", default=False)
+
+
+@contextlib.contextmanager
+def recurrence_counted_once():
+    """Within the block, the sLSTM time loop runs one step and repeats its
+    output over the sequence: the shapes, and the counts of a scan body
+    once, of the reference's cost analysis.  Not the model's values."""
+    token = _ONE_STEP.set(True)
+    try:
+        yield
+    finally:
+        _ONE_STEP.reset(token)
 
 
 def _write_back(cache: Dict, new: Dict) -> None:
@@ -169,7 +189,8 @@ def slstm_mixer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
         zero = torch.zeros((b, d), device=x.device)
         st = {"c": zero, "n": zero + 1e-6, "h": zero, "m": zero - 10.0}
     hs = []
-    for t in range(s):
+    steps = 1 if _ONE_STEP.get() else s
+    for t in range(steps):
         rec = torch.einsum("ghde,bhd->gbhe", wr, st["h"].reshape(b, h, dh))
         rec = rec.permute(1, 0, 2, 3).reshape(b, 4, d)
         gi, gf, gz, go = (gates_x[:, t] + rec).unbind(1)
@@ -182,7 +203,10 @@ def slstm_mixer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
         h1 = torch.sigmoid(go) * c1 / torch.clamp(n1, min=1e-6)
         st = {"c": c1, "n": n1, "h": h1, "m": m1}
         hs.append(h1)
-    y = torch.stack(hs, dim=1).to(x.dtype)                  # (B,S,D)
+    y = torch.stack(hs, dim=1)
+    if steps < s:
+        y = torch.cat([y, hs[-1][:, None].expand(b, s - steps, d)], dim=1)
+    y = y.to(x.dtype)                                       # (B,S,D)
     y = rmsnorm(y, p["onorm"], cfg.norm_eps)
     y = F.gelu(y @ p["w1"], approximate="tanh") @ p["w2"]
     if cache is not None:

@@ -90,6 +90,35 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return unflatten(treedef, [fn(*args) for args in zip(leaves, *others)])
 
 
+def flatten_with_path(tree: Any) -> List[Tuple[tuple, Any]]:
+    """``(path, leaf)`` for every leaf in :func:`flatten`'s order.  A path
+    is the tuple of keys from the root: a dict's key, a list's or a plain
+    tuple's index, a NamedTuple's field name."""
+    out: List[Tuple[tuple, Any]] = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            names = getattr(node, "_fields", range(len(node)))
+            for k, c in zip(names, node):
+                walk(c, path + (k,))
+        else:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
+
+
+def tree_map_with_path(fn: Callable[[tuple, Any], Any], tree: Any) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, in its structure."""
+    treedef = flatten(tree)[1]
+    return unflatten(treedef, [fn(p, l) for p, l in flatten_with_path(tree)])
+
+
 def describe(treedef: TreeDef) -> str:
     """A readable form of ``treedef`` (the checkpoint manifest's
     ``treedef``)."""

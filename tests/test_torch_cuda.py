@@ -1360,3 +1360,106 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dyn):
     assert launches == (2 * 6 * 3 if dyn else 0)
     for a, b in zip(p0, p1):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The dry run's slice on the card (chip_smoke.py phase 12, at small sizes)
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_compressed_allreduce_on_one_nccl_rank_equals_the_cpu(cuda):
+    """The int8 error-feedback all-reduce over a one-rank NCCL group: mean
+    and residual bitwise the same call on the CPU over a gloo group (IEEE
+    division and one rounding of the residual on both devices)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        cpu = dist.new_group(ranks=[0], backend="gloo")
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        grads = {"w": torch.randn((300, 257), generator=gen, device=cuda,
+                                  dtype=torch.bfloat16),
+                 "b": torch.randn((33,), generator=gen, device=cuda) * 1e3,
+                 "z": torch.zeros((7,), device=cuda)}
+        res = {k: torch.randn(v.shape, generator=gen, device=cuda) * 1e-2
+               for k, v in grads.items()}
+        res["z"].zero_()
+        mean, new_res = collectives.compressed_grad_allreduce(grads, None,
+                                                              res)
+        cmean, cres = collectives.compressed_grad_allreduce(
+            {k: v.cpu() for k, v in grads.items()}, cpu,
+            {k: v.cpu() for k, v in res.items()})
+        for k in grads:
+            assert mean[k].dtype == grads[k].dtype
+            assert torch.equal(mean[k].cpu(), cmean[k]), k
+            assert torch.equal(new_res[k].cpu(), cres[k]), k
+        assert not mean["z"].any()
+        x = torch.randn((65, 31), generator=gen, device=cuda)
+        assert torch.equal(collectives.compressed_psum(x).cpu(),
+                           collectives.compressed_psum(x.cpu(), cpu))
+        q, s = collectives.quantize_int8(x.bfloat16())
+        qc, sc = collectives.quantize_int8(x.bfloat16().cpu())
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("m,n,tile,dtype", [
+    (2047, 8191, (256, 256), torch.bfloat16),
+    (300, 200, (128, 128), torch.float32),
+    (17, 33, (16, 16), torch.float32)])
+def test_padded_tile_nnz_launches_once_and_is_exact(cuda, m, n, tile, dtype):
+    x = sparse(m + n, m, n, 0.3, cuda).to(dtype)
+    K.reset_launch_counts()
+    got = ops.tile_nnz(x, tile=tile)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["tile_nnz"] == 1
+    assert got.shape == (-(-m // tile[0]), -(-n // tile[1]))
+    assert torch.equal(got.cpu(), ops.tile_nnz(x.cpu(), tile=tile))
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_meta_count_equals_the_card_count(cuda, kind):
+    """A smoke cell's 1-period cost proxy: the FLOPs counted on the meta
+    device equal those of the same call on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.train import tree as tree_lib
+
+    mesh = make_test_mesh(8, 4)
+    shape = ShapeCfg("s", 64, 2, kind)
+    cfg = dryrun._variant(smoke_config("llama3.2-1b"), shape, mode="cost",
+                          n_periods=1)
+    cell = dryrun.build_cell(cfg, shape, mesh)
+    params = model_zoo.build(cfg, cuda).init_params(0)
+
+    def real(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.is_floating_point():
+            return torch.zeros(x.shape, dtype=x.dtype, device=cuda)
+        return torch.ones(x.shape, dtype=x.dtype, device=cuda)
+
+    # the cell's arguments on the card, its params as initialised (the
+    # counts read shapes only, but the card's run is a real one)
+    args = tree_lib.tree_map(real, cell.args)
+    if kind == "train":
+        args = (args[0]._replace(params=params),) + tuple(args[1:])
+    else:
+        args = (params,) + tuple(args[1:])
+    on_meta = dryrun.count(cell.fn, *cell.args, mesh=mesh)
+    on_card = dryrun.count(cell.fn, *args, mesh=mesh)
+    torch.cuda.synchronize()
+    assert on_meta["flops"] == on_card["flops"] > 0

@@ -187,7 +187,11 @@ def test_the_dense_only_guard_is_gone():
 def test_the_distributed_package_is_covered():
     mods = _port_modules()
     assert {"repro_torch.distributed",
-            "repro_torch.distributed.sharding"} <= set(mods)
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.shardctx",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"} <= set(mods)
 
 
 def test_a_mesh_of_cards_needs_the_cards():
@@ -267,3 +271,63 @@ def test_training_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
 def tree_devices(tree):
     from repro_torch.train import tree as tree_lib
     return {t.device.type for t in tree_lib.flatten(tree)[0]}
+
+
+DRY_RUN_SLICE = {
+    "repro_torch.launch.mesh": "make_production_mesh make_test_mesh",
+    "repro_torch.distributed.sharding":
+        "NamedMesh PartitionSpec P NamedSharding batch_axes _axsize "
+        "ROW_PARALLEL_NAMES param_spec _is_row_parallel _is_expert "
+        "expert_param_spec param_shardings cache_spec cache_shardings "
+        "batch_spec batch_shardings replicated describe shard_bytes",
+    "repro_torch.distributed.shardctx": "use_mesh axis_size shard",
+    "repro_torch.distributed.collectives":
+        "quantize_int8 dequantize_int8 compressed_psum "
+        "compressed_grad_allreduce init_residual",
+    "repro_torch.launch.dryrun":
+        "collective_bytes _variant _microbatches _logits_sharding "
+        "build_cell count_cell count ByteCounter model_flops roofline "
+        "extrapolate run_cell main",
+    "repro_torch.models.model_zoo":
+        "input_specs abstract_params abstract_caches",
+    "repro_torch.models.xlstm": "recurrence_counted_once",
+    "repro_torch.core.perf_model": "FPGACostModel",
+    "repro_torch.kernels.ops": "tile_nnz",
+    "repro_torch.train.tree": "flatten_with_path tree_map_with_path"}
+
+
+def test_dry_run_slice_imports_no_jax():
+    """The dry run's slice (the meshes, the LM sharding rules, shardctx,
+    the int8 collectives, the dry run itself, the abstract builders, the
+    padded ``ops.tile_nnz``) lives in the port and pulls in neither jax,
+    nor the JAX package, nor ml_dtypes: one fresh process imports all of
+    it.  ``FPGACostModel`` has the reference's ``seconds``."""
+    code = (
+        "import importlib, sys\n"
+        f"for name, names in {DRY_RUN_SLICE!r}.items():\n"
+        "    m = importlib.import_module(name)\n"
+        "    missing = [n for n in names.split() if not hasattr(m, n)]\n"
+        "    assert not missing, (name, missing)\n"
+        "from repro_torch.core.perf_model import FPGACostModel\n"
+        "assert hasattr(FPGACostModel, 'seconds')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', "
+        "'repro', 'ml_dtypes')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_dry_run_needs_no_card():
+    """The dry run counts a cell on the meta device, with or without a
+    card: no tensor of it has storage."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun, mesh
+
+    rec = dryrun.run_cell("xlstm-125m", "t",
+                          config_override=smoke_config("xlstm-125m"),
+                          shape_override=ShapeCfg("t", 32, 4, "decode"),
+                          mesh=mesh.make_test_mesh(8, 4))
+    assert rec["status"] == "ok" and rec["flops_per_device"] > 0
