@@ -85,16 +85,21 @@ card at the shapes its path gives it, then drives the port's paths:
   decode against its full forward, jamba's dense FFNs on ``dispatch``;
   whisper-large-v3 on 2 x 3000 stub frames, 8 greedy steps against
   ``decoder_forward``; then the ten archs' smoke configs;
-* LM training (phase 11): the ``dispatch`` backward (the reference's
-  masked VJP as two launches over the permuted code grid) at llama3.2-1b's
-  FFN shapes, bf16 and float32, against autograd through the plain
-  version, dx exactly 0 where the forward SKIPped; llama3.2-1b at full
-  width trained 4 steps (batch 8 x 256, lr 3e-3, float32 AdamW state)
-  with ``dynasparse_ffn`` through ``make_train_step`` + ``Trainer`` +
-  ``TokenPipeline`` (48 forward and 96 backward ``dispatch``, 144
-  ``tile_nnz`` a step) and dense; ``launch/train.py`` with a failure at
-  step 2 restarting from its step-2 checkpoint, equal to the
-  uninterrupted dense run;
+* LM training (phase 11): the reference's masked VJP of ``dispatch`` at
+  llama3.2-1b's FFN shapes, bf16 (``dispatch_bwd``: wgmma fed by TMA,
+  the forward's operands and code grid read in place) and float32 (two
+  ``dispatch`` launches over the permuted grid), against autograd
+  through the plain version, dx exactly 0 where the forward SKIPped;
+  ``dispatch_bwd`` against its plain versions (float32 sums within
+  ``DISPATCH_BF16_TOL``, its bf16 result their rounding bitwise) and
+  timed at the four FFN products, on a grid with half of w1's blocks
+  SKIPped and at deepseek's ragged 2048 x 10944 dense-first w1;
+  llama3.2-1b at full width trained 4 steps (batch 8 x 256, lr 3e-3,
+  float32 AdamW state) with ``dynasparse_ffn`` through
+  ``make_train_step`` + ``Trainer`` + ``TokenPipeline`` (48 ``dispatch``,
+  96 ``dispatch_bwd`` and 144 ``tile_nnz`` a step) and dense;
+  ``launch/train.py`` with a failure at step 2 restarting from its
+  step-2 checkpoint, equal to the uninterrupted dense run;
 * the dry run (phase 12): the int8 error-feedback gradient all-reduce
   (``distributed.collectives``) over a one-rank NCCL group on a tree of
   llama3.2-1b's full-width gradient shapes, timed beside its bytes-moved
@@ -109,7 +114,7 @@ card at the shapes its path gives it, then drives the port's paths:
   argument and output leaf under a spec.
 
 bf16 operands run on the tensor-core routes of ``dispatch`` and
-``flash_attention`` (``mma.sync``), float32 on the FP32 FMA routes
+``flash_attention`` (``mma.sync``) and ``dispatch_bwd`` (``wgmma``), float32 on the FP32 FMA routes
 (register microtiles fed by ``cp.async`` or double buffers); each
 ``kernel`` record names its route (``mma``, ``fma``, or ``simt`` for the
 integer ``tile_nnz``).  ``gemm`` is also timed at the 16-wide shapes the
@@ -933,14 +938,12 @@ def main() -> int:
     kernels_line["flash_attention"]["launches"] = \
         lm_counts["score"]["flash_attention"]
     kernels_line[LM_DISPATCH]["launches"] = lm_counts["serve"]["dispatch"]
-    kernels_line[LM_DISPATCH_BWD]["launches"] = \
-        train_counts["backward_dispatch"]
+    kernels_line["dispatch_bwd"]["launches"] = train_counts["dispatch_bwd"]
     kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
     kernels_line["tile_nnz_batched"]["launches"] = \
         serve_counts["tile_nnz_batched"]
     kernels_line[PADDED_TILE_NNZ]["launches"] = padded_counts["tile_nnz"]
-    check(set(K.launch_counts()) | {LM_DISPATCH, LM_DISPATCH_BWD,
-                                    PADDED_TILE_NNZ}
+    check(set(K.launch_counts()) | {LM_DISPATCH, PADDED_TILE_NNZ}
           == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
@@ -4057,16 +4060,18 @@ def lm_families_phase(torch, np, K, dev, card, kernel_entry) -> None:
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 4, 3e-3
 TRAIN_REL = 5e-2        # dynasparse vs dense first-step loss and grad norm
 RESTART_TOL = 1e-5      # restarted vs uninterrupted final params
-# the bf16 dispatch kernel's backward launches (dx and dw of every FFN
-# product on the training path), timed on dx of w1
-LM_DISPATCH_BWD = "dispatch (bf16, backward)"
+# deepseek-v2-lite-16b's dense-first FFN width (configs/deepseek_v2_lite
+# _16b.py d_ff_dense): a ragged 42.75 blocks of 256
+RAGGED_FF = 10944
 
 
 def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     """Phase 11: (a) the dispatch backward at llama3.2-1b's FFN shapes
     (2048 tokens; w1 2048 -> 8192, w2 8192 -> 2048) in bf16 and float32
     against autograd through ``block_matmul_plain``, zero 256-blocks
-    planted in x and w, each backward launch timed; (b) four training
+    planted in x and w, each backward product checked against its plain
+    version and timed (bf16: ``dispatch_bwd``, also on a grid with half
+    of w1's blocks SKIPped and at a ragged width); (b) four training
     steps at full width with ``dynasparse_ffn`` (``make_train_step`` +
     ``Trainer`` + ``TokenPipeline``), launches per step counted, and the
     same four steps dense; (c) ``launch.train.main`` with a failure at
@@ -4102,17 +4107,27 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
         t[:bm, bk:2 * bk] = 0          # one zero 256-block: SKIP codes
         return t
 
+    def planned(xs, ws):
+        return analyzer.plan_codes(
+            "dynamic", profiler.block_density(xs, blk[:2]),
+            profiler.block_density(ws, blk[1:]), TPUCostModel())
+
+    def skipped_rows(codes, m, k):
+        """x's elements in a block that every step SKIPped: dx is 0."""
+        skipped = ((codes != 0).sum(1) == 0)                 # (I, Kb)
+        return skipped.repeat_interleave(bm, 0).repeat_interleave(
+            bk, 1)[:m, :k], skipped
+
     x = operand(tokens, cfg.d_model, 1.0)
     w1 = operand(cfg.d_model, cfg.d_ff, cfg.d_model ** -0.5)
     h = operand(tokens, cfg.d_ff, 1.0)
     w2 = operand(cfg.d_ff, cfg.d_model, cfg.d_ff ** -0.5)
     backward_cases = {}
     for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        bf16 = dtype == torch.bfloat16
         for prod, (xs, ws) in (("w1", (x, w1)), ("w2", (h, w2))):
             xs, ws = xs.to(dtype), ws.to(dtype)
-            codes = analyzer.plan_codes(
-                "dynamic", profiler.block_density(xs, blk[:2]),
-                profiler.block_density(ws, blk[1:]), TPUCostModel())
+            codes = planned(xs, ws)
             m, n = xs.shape[0], ws.shape[1]
             g = torch.randn((m, n), generator=gen, device=dev).to(
                 dtype).float()
@@ -4128,21 +4143,21 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                         xr, wr, codes, blk, pad_rows=False)[:m, :n]
                 out.backward(g)
                 torch.cuda.synchronize()
-                launched = K.launch_counts()["dispatch"]
-                check(launched == (3 if route == "kernel" else 0),
-                      f"backward {label} {prod}: {launched} dispatch "
-                      f"launches by the {route} route")
+                c = K.launch_counts()
+                launched = (c["dispatch"], c["dispatch_bwd"])
+                want = ((0, 0) if route == "plain" else (1, 2) if bf16
+                        else (3, 0))
+                check(launched == want,
+                      f"backward {label} {prod}: {launched} dispatch, "
+                      f"dispatch_bwd launches by the {route} route "
+                      f"(want {want})")
                 grads[route] = (xr.grad, wr.grad)
                 del out, xr, wr
-            run = (codes != 0).to(torch.int32)
-            skipped = (run.sum(1) == 0)                      # (I, Kb)
+            mask, skipped = skipped_rows(codes, m, xs.shape[1])
             check(bool(skipped[0, 1]), f"{prod}: the planted zero block "
                   "of x was not SKIPped by every step")
-            dxk = grads["kernel"][0].float()
             dense = (g @ ws.float().T)
-            mask = skipped.repeat_interleave(bm, 0).repeat_interleave(
-                bk, 1)[:m, :xs.shape[1]]
-            check(bool(torch.all(dxk[mask] == 0)),
+            check(bool(torch.all(grads["kernel"][0][mask] == 0)),
                   f"{prod} {label}: dx not 0 where every step SKIPped")
             errs = {}
             for i, name in ((0, "dx"), (1, "dw")):
@@ -4151,8 +4166,7 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                 errs[name] = float((got - want).abs().max()
                                    / want.abs().max())
                 errs[name + "_bitwise"] = bool(torch.equal(got, want))
-                check(errs[name] <= (BF16_TOL if dtype == torch.bfloat16
-                                     else TOL),
+                check(errs[name] <= (BF16_TOL if bf16 else TOL),
                       f"backward {label} {prod} {name}: rel err "
                       f"{errs[name]}")
             record("train_backward_check", dtype=label, product=prod,
@@ -4162,21 +4176,71 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                    skipped_x_blocks=int(skipped.sum()),
                    dense_dx_in_skipped=float(dense[mask].abs().max()),
                    rel_err_vs_autograd_of_plain=errs,
-                   tol=BF16_TOL if dtype == torch.bfloat16 else TOL)
-            backward_cases[(label, prod)] = (xs, ws, g.to(dtype), run)
-            del grads, dense, dxk, mask
+                   tol=BF16_TOL if bf16 else TOL)
+            backward_cases[(label, prod)] = (xs, ws, g.to(dtype), codes)
+            del grads, dense, mask
+
     def rel_to_max(got, want, tol):
         """(max|err|, ok): within ``tol`` of the largest |want| -- dw sums
         2048 token products of size ~1 (|dw| ~ 45), so float32 order
         differences reach 7e-4 absolute where an elementwise tolerance
-        reads them against small entries; a stale 32-wide k slice would
+        reads them against small entries; a stale 64-deep stage would
         move a sum by ~10 % of its size."""
         err = float((got.double() - want.double()).abs().max())
         return err, err <= tol * float(want.double().abs().max())
 
-    # each backward launch as the Function makes it, timed
-    for (label, prod), (xs, ws, gd, run) in backward_cases.items():
-        bf16 = label == "bf16"
+    B = K.dispatch_bwd
+    products = {"nt": (B.block_matmul_nt, B.block_matmul_nt_plain,
+                       lambda a, b: torch.matmul(a, b.T)),
+                "tn": (B.block_matmul_tn, B.block_matmul_tn_plain,
+                       lambda a, b: torch.matmul(a.T, b))}
+
+    def bwd_entry(case, layout, a, b, codes, line=False, zero=None):
+        """Check and time one ``dispatch_bwd`` product: its float32 sums
+        within ``DISPATCH_BF16_TOL`` of the plain version's, its bf16
+        result (the one the training path takes and the one timed) their
+        rounding, bitwise, and 0 on ``zero``."""
+        fn, plain, lib = products[layout]
+
+        def compare(got, want, tol):
+            k32 = fn(a, b, codes, blk, out_dtype=torch.float32)
+            p32 = plain(a, b, codes, blk, out_dtype=torch.float32)
+            err, ok = rel_to_max(k32, p32, tol)
+            rounded = torch.equal(got, k32.to(got.dtype))
+            zeros = zero is None or bool(torch.all(got[zero] == 0))
+            record("dispatch_bwd_check", case=case, layout=layout,
+                   max_abs_err_f32=err,
+                   max_abs_want=float(p32.abs().max()), tol=tol,
+                   bf16_is_f32_rounded=rounded, zero_where_skipped=zeros,
+                   bf16_max_abs_diff_vs_plain=float(
+                       (got.float() - want.float()).abs().max()))
+            del k32, p32
+            return err, ok and rounded and zeros
+
+        return kernel_entry(
+            case, "src/repro_torch/kernels/csrc/dispatch_bwd.cu",
+            "src/repro/core/dynasparse.py:239",
+            lambda: fn(a, b, codes, blk), lambda: plain(a, b, codes, blk),
+            lambda: lib(a, b), bwd_work(torch, layout, a, b, codes, blk),
+            lambda g_, w_: True, tol=DISPATCH_BF16_TOL, peak=PEAK_BF16,
+            units="wgmma", line=line, line_name="dispatch_bwd",
+            compare=compare,
+            lib_call="torch.matmul (the operand transposed, a view)")
+
+    # each backward product as the Function makes it, timed
+    for (label, prod), (xs, ws, gd, codes) in backward_cases.items():
+        if label == "bf16":
+            mask = skipped_rows(codes, *xs.shape)[0]
+            bwd_entry(f"dispatch_bwd (dx of {prod}: {tuple(gd.shape)} @ "
+                      f"{tuple(ws.shape)}.T)", "nt", gd, ws, codes,
+                      line=prod == "w1", zero=mask)
+            bwd_entry(f"dispatch_bwd (dw of {prod}: {tuple(xs.shape)}.T @ "
+                      f"{tuple(gd.shape)})", "tn", xs, gd, codes)
+            continue
+        # float32: two dispatch launches (fma route) over the permuted
+        # grids, checked and timed by CUDA events only (the float32
+        # dispatch equals its plain version bitwise)
+        run = (codes != 0).to(torch.int32)
         for name, a, b, c, b_ in (
                 ("dx", gd, ws.T, run.permute(0, 2, 1).contiguous(),
                  (bm, bn, bk)),
@@ -4184,45 +4248,56 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                  (bk, bm, bn))):
             case = (f"dispatch backward ({label}, {name} of {prod}: "
                     f"{tuple(a.shape)} @ {tuple(b.shape)})")
-            if not bf16:
-                # the fma route: checked and timed by CUDA events only
-                # (the float32 dispatch equals its plain version bitwise)
-                got = K.dispatch.block_matmul(a, b, c, b_, pad_rows=False)
-                want = K.dispatch.block_matmul_plain(a, b, c, b_,
-                                                     pad_rows=False)
-                err, ok = rel_to_max(got, want, TOL)
-                check(ok, f"{case}: max|err| {err}")
-                b_ms, b_by = bound(*dispatch_work(torch, K, a, b, c, b_))
-                record("kernel", name=case, route="fma",
-                       source="src/repro_torch/kernels/csrc/dispatch.cu",
-                       max_abs_err=err, bitwise=bool(torch.equal(got, want)),
-                       ms=cuda_ms(torch, lambda a=a, b=b, c=c, b_=b_:
-                                  K.dispatch.block_matmul(
-                                      a, b, c, b_, pad_rows=False)),
-                       plain_ms=cuda_ms(torch, lambda a=a, b=b, c=c, b_=b_:
-                                        K.dispatch.block_matmul_plain(
-                                            a, b, c, b_, pad_rows=False)),
-                       library_ms=cuda_ms(torch, lambda a=a, b=b:
-                                          torch.matmul(a, b)),
-                       bound_ms=b_ms, bound_by=b_by, tol=TOL,
-                       in_kernels_line=False)
-                del got, want
-                continue
-            kernel_entry(
-                case,
-                "src/repro_torch/kernels/csrc/dispatch.cu",
-                "src/repro/core/dynasparse.py:239",
-                lambda a=a, b=b, c=c, b_=b_: K.dispatch.block_matmul(
-                    a, b, c, b_, pad_rows=False),
-                lambda a=a, b=b, c=c, b_=b_: K.dispatch.block_matmul_plain(
-                    a, b, c, b_, pad_rows=False),
-                lambda a=a, b=b: torch.matmul(a, b),
-                dispatch_work(torch, K, a, b, c, b_), lambda g_, w_: True,
-                tol=DISPATCH_BF16_TOL, peak=PEAK_BF16, units="mma",
-                line=(name, prod) == ("dx", "w1"),
-                line_name=LM_DISPATCH_BWD, compare=rel_to_max,
-                lib_call="torch.matmul (the operand transposed, a view)")
-    del backward_cases, x, w1, h, w2
+            got = K.dispatch.block_matmul(a, b, c, b_, pad_rows=False)
+            want = K.dispatch.block_matmul_plain(a, b, c, b_,
+                                                 pad_rows=False)
+            err, ok = rel_to_max(got, want, TOL)
+            check(ok, f"{case}: max|err| {err}")
+            b_ms, b_by = bound(*dispatch_work(torch, K, a, b, c, b_))
+            record("kernel", name=case, route="fma",
+                   source="src/repro_torch/kernels/csrc/dispatch.cu",
+                   max_abs_err=err, bitwise=bool(torch.equal(got, want)),
+                   ms=cuda_ms(torch, lambda a=a, b=b, c=c, b_=b_:
+                              K.dispatch.block_matmul(
+                                  a, b, c, b_, pad_rows=False)),
+                   plain_ms=cuda_ms(torch, lambda a=a, b=b, c=c, b_=b_:
+                                    K.dispatch.block_matmul_plain(
+                                        a, b, c, b_, pad_rows=False)),
+                   library_ms=cuda_ms(torch, lambda a=a, b=b:
+                                      torch.matmul(a, b)),
+                   bound_ms=b_ms, bound_by=b_by, tol=TOL,
+                   in_kernels_line=False)
+            del got, want
+
+    # a pruned grid: about half of w1's 256-blocks zero, so SKIPped
+    xs, _, gd, _ = backward_cases[("bf16", "w1")]
+    wh = w1.to(torch.bfloat16)
+    kb, jb = wh.shape[0] // bk, wh.shape[1] // bn
+    gone = torch.rand((kb, jb), generator=gen, device=dev) < 0.5
+    wh = wh * (~gone).repeat_interleave(bk, 0).repeat_interleave(
+        bn, 1).to(wh.dtype)
+    codes = planned(xs, wh)
+    record("dispatch_bwd_pruned_grid", w_blocks_zero=int(gone.sum()),
+           w_blocks=kb * jb, codes_histogram=torch.bincount(
+               codes.flatten().long(), minlength=4).tolist(),
+           active_steps=int((codes != 0).sum()), steps=codes.numel())
+    bwd_entry(f"dispatch_bwd (dx of w1, {int(gone.sum())} of {kb * jb} "
+              "w blocks zero)", "nt", gd, wh, codes,
+              zero=skipped_rows(codes, *xs.shape)[0])
+    bwd_entry(f"dispatch_bwd (dw of w1, {int(gone.sum())} of {kb * jb} "
+              "w blocks zero)", "tn", xs, gd, codes)
+    # deepseek's dense-first w1: a ragged width, 42.75 blocks of 256
+    wr = operand(cfg.d_model, RAGGED_FF, cfg.d_model ** -0.5).to(
+        torch.bfloat16)
+    gr = torch.randn((tokens, RAGGED_FF), generator=gen, device=dev).to(
+        torch.bfloat16)
+    codes = planned(xs, wr)
+    bwd_entry(f"dispatch_bwd (dx, ragged: {tuple(gr.shape)} @ "
+              f"{tuple(wr.shape)}.T)", "nt", gr, wr, codes,
+              zero=skipped_rows(codes, *xs.shape)[0])
+    bwd_entry(f"dispatch_bwd (dw, ragged: {tuple(xs.shape)}.T @ "
+              f"{tuple(gr.shape)})", "tn", xs, gr, codes)
+    del backward_cases, x, w1, h, w2, xs, gd, wh, wr, gr
     torch.cuda.empty_cache()
     a_s = time.perf_counter() - t_phase
 
@@ -4276,7 +4351,7 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     K.reset_launch_counts()
     trainer.run(1, log=lines.append)
     prof = profile_device(torch, lambda: trainer.run(1, log=lines.append),
-                          n=1, warm=False, windows=1)
+                          n=1, top=20, warm=False, windows=1)
     trainer.run(TRAIN_STEPS - 2, log=lines.append)
     torch.cuda.synchronize()
     window = K.launch_counts()
@@ -4285,15 +4360,19 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     per_layer = 3 * cfg.n_layers          # w1, w3, w2 of every layer
     for i, s in enumerate(logs[True]):
         fwd_d, tot_d = s["forward"]["dispatch"], s["total"]["dispatch"]
-        check(fwd_d == per_layer and tot_d - fwd_d == 2 * per_layer
+        bwd = s["total"]["dispatch_bwd"]
+        check(fwd_d == tot_d == per_layer and bwd == 2 * per_layer
+              and s["forward"]["dispatch_bwd"] == 0
               and s["total"]["tile_nnz"] == 3 * per_layer
               and s["forward"]["tile_nnz"] == 3 * per_layer,
               f"train step {i}: dispatch {fwd_d} forward / {tot_d - fwd_d} "
-              f"backward, tile_nnz {s['total']['tile_nnz']} (want "
-              f"{per_layer} / {2 * per_layer}, {3 * per_layer})")
+              f"backward, dispatch_bwd {bwd}, tile_nnz "
+              f"{s['total']['tile_nnz']} (want {per_layer} / 0, "
+              f"{2 * per_layer}, {3 * per_layer})")
         check(all(np.isfinite(v) for v in s["metrics"].values()),
               f"train step {i}: {s['metrics']}")
-    check(window["dispatch"] == 3 * per_layer * TRAIN_STEPS
+    check(window["dispatch"] == per_layer * TRAIN_STEPS
+          and window["dispatch_bwd"] == 2 * per_layer * TRAIN_STEPS
           and window["tile_nnz"] == 3 * per_layer * TRAIN_STEPS,
           f"train window launches {window}")
     record("train_dynasparse", arch=cfg.name, steps=TRAIN_STEPS,
@@ -4314,7 +4393,8 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     dense.run(TRAIN_STEPS - 2, log=lines.append)
     torch.cuda.synchronize()
     dense_counts = K.launch_counts()
-    check(dense_counts["dispatch"] == 0 and dense_counts["tile_nnz"] == 0,
+    check(dense_counts["dispatch"] == dense_counts["dispatch_bwd"] == 0
+          and dense_counts["tile_nnz"] == 0,
           f"dense training launched {dense_counts}")
     first = {k: (logs[True][0]["metrics"][k], logs[False][0]["metrics"][k])
              for k in ("loss", "grad_norm")}
@@ -4375,9 +4455,8 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     torch.cuda.empty_cache()
     record("phase", name="11 LM training",
            seconds=time.perf_counter() - t_phase, card=card)
-    return {"backward_dispatch": sum(
-        s["total"]["dispatch"] - s["forward"]["dispatch"]
-        for s in logs[True])}
+    return {"dispatch_bwd": sum(s["total"]["dispatch_bwd"]
+                                for s in logs[True])}
 
 
 # phase 12: the dry run.  (a) the int8 error-feedback all-reduce over a
@@ -4736,6 +4815,36 @@ def dispatch_work(torch, K, x, y, codes, block) -> tuple:
               + 4.0 * (codes.numel() + m * J * bn))
     return float(flops), float(nbytes)
 
+
+def bwd_work(torch, layout, a, b, codes, block) -> tuple:
+    """(flops, bytes) ``dispatch_bwd`` needs on these inputs: each active
+    step's block product over the rows, columns and depth that lie inside
+    the operands (a tile no step reaches is written as zeros), every
+    operand block that one active step reads, read once, the code grid
+    read and the bf16 result written once."""
+    bm, bk, bn = block
+    I, J, Kb = codes.shape
+    run = (codes != 0).double()                             # (I, J, Kb)
+
+    def extent(n, edge, count):
+        return (n - edge * torch.arange(count, device=codes.device)
+                ).clamp(0, edge).double()
+
+    if layout == "nt":      # g (m, n), w (kd, n): dx (m, kd)
+        m, n, kd = a.shape[0], a.shape[1], b.shape[0]
+    else:                   # x (m, kd), g (m, n): dw (kd, n)
+        m, kd, n = a.shape[0], a.shape[1], b.shape[1]
+    r, c, k = extent(m, bm, I), extent(n, bn, J), extent(kd, bk, Kb)
+    flops = 2.0 * torch.einsum("ijk,i,j,k->", run, r, c, k)
+    any_ij = (run.sum(2) > 0).double()                      # g's blocks
+    g_bytes = torch.einsum("ij,i,j->", any_ij, r, c)
+    if layout == "nt":      # w's (k, j) blocks
+        other = torch.einsum("jk,k,j->", (run.sum(0) > 0).double(), k, c)
+    else:                   # x's (i, k) blocks
+        other = torch.einsum("ik,i,k->", (run.sum(1) > 0).double(), r, k)
+    nbytes = (2.0 * (g_bytes + other) + 4.0 * codes.numel()
+              + 2.0 * kd * (m if layout == "nt" else n))
+    return float(flops), float(nbytes)
 
 if __name__ == "__main__":
     sys.exit(main())

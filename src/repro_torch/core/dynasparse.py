@@ -34,10 +34,11 @@ propagated writeback profiles and shares one ELL view across kernels.
 
 Gradients: where grad mode is on and x or y requires a gradient, the
 ``dispatch`` route runs inside :class:`BlockMatmulFn`, whose backward is
-two more ``dispatch`` launches on transposed operands with the code grid
-permuted: the reference's masked VJP (its ``lax.switch`` SKIP branch
-returns ``acc``, so ``jax.grad`` gives no gradient through a SKIPped
-block step).  Profiling, planning and the writeback counts read detached
+two ``dispatch_bwd`` launches on bf16 grids (the operands and the code
+grid read in place) and otherwise two more ``dispatch`` launches on
+transposed operands with the code grid permuted: the reference's masked
+VJP (its ``lax.switch`` SKIP branch returns ``acc``, so ``jax.grad``
+gives no gradient through a SKIPped block step).  Profiling, planning and the writeback counts read detached
 tensors.  The other CUDA routes (float32 static ``gemm``/``spdmm``, row
 CSR) have no backward and raise under grad.
 
@@ -59,6 +60,7 @@ from repro_torch.core.ir import KernelType
 from repro_torch.core.perf_model import FPGACostModel, Format, Primitive
 from repro_torch.kernels import csr_spmm as _csr
 from repro_torch.kernels import dispatch as _dispatch
+from repro_torch.kernels import dispatch_bwd as _bwd
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import spdmm as _spdmm
@@ -98,19 +100,24 @@ def ell_when(want: torch.Tensor, x: torch.Tensor, rmax: int
 
 class BlockMatmulFn(torch.autograd.Function):
     """``x @ y`` through one ``dispatch`` launch over the code grid, with
-    the reference's masked VJP as two more ``dispatch`` launches:
+    the reference's masked VJP: a block step (i, j, k) that the forward
+    SKIPped adds nothing to dx[i, k] or dy[k, j], as in the reference, so
+    dx is exactly 0 in a block that every step SKIPped even where the
+    dense ``g @ y.T`` is not.  ``g`` is cast once to the operands' type
+    (bf16 cotangents of a bf16 result are exact).
 
-    * ``dx = block_matmul(g, y.T, codes.permute(0, 2, 1), (bm, bn, bk))``
-    * ``dy = block_matmul(x.T, g, codes.permute(2, 1, 0), (bk, bm, bn))``
+    bf16 operands at a block whose edges are all in
+    ``dispatch_bwd.EDGES`` take ``dispatch_bwd``'s two launches, which
+    read x, y, g and the forward's codes in place (``block_matmul_nt`` for
+    dx, ``block_matmul_tn`` for dy, each rounded once to the operand's
+    type).  Anything else takes two more ``dispatch`` launches on
+    transposed operands over the code grid permuted, with GEMM wherever
+    the forward ran a step:
 
-    each cut to its operand's shape and cast to its dtype.  A block step
-    (i, j, k) that the forward SKIPped adds nothing to dx[i, k] or dy[k,
-    j], as in the reference, so dx is exactly 0 in a block that every
-    step SKIPped even where the dense ``g @ y.T`` is not.  ``g`` is cast
-    to the operands' type (bf16 cotangents of a bf16 result are exact).
-    The transposed operands are materialised by the kernel's wrapper:
-    ``y.T`` costs one copy of y (d_model x d_ff bf16, 32 MiB for a
-    llama3.2-1b FFN weight), ``x.T`` one copy of the activations."""
+    * ``dx = block_matmul(g, y.T, run.permute(0, 2, 1), (bm, bn, bk))``
+    * ``dy = block_matmul(x.T, g, run.permute(2, 1, 0), (bk, bm, bn))``
+
+    each cut to its operand's shape and cast to its dtype."""
 
     @staticmethod
     def forward(ctx, x, y, codes, block):
@@ -123,23 +130,32 @@ class BlockMatmulFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y, codes = ctx.saved_tensors
-        bm, bk, bn = ctx.block
+        block = ctx.block
+        gy = g.to(y.dtype, memory_format=torch.contiguous_format)
+        gx = gy if x.dtype == y.dtype else g.to(x.dtype)
+        dx = dy = None
+        if x.dtype == y.dtype and _bwd.takes(x.dtype, block):
+            if ctx.needs_input_grad[0]:
+                dx = _bwd.block_matmul_nt(gy, y, codes, block)
+            if ctx.needs_input_grad[1]:
+                dy = _bwd.block_matmul_tn(x, gy, codes, block)
+            return dx, dy, None, None
+        bm, bk, bn = block
         # The forward's SPDMM/SPMM codes name which FORWARD operand is
         # sparse; after the transpose it is another one.  Every non-SKIP
         # step computes the same value for finite operands, so the
         # backward grids hold GEMM wherever the forward ran a step.
         run = torch.where(codes != Primitive.SKIP, int(Primitive.GEMM),
                           int(Primitive.SKIP)).to(torch.int32)
-        dx = dy = None
         if ctx.needs_input_grad[0]:
             dx = _dispatch.block_matmul(
-                g.to(y.dtype), y.T, run.permute(0, 2, 1).contiguous(),
-                (bm, bn, bk), pad_rows=False)
+                gy, y.T, run.permute(0, 2, 1).contiguous(), (bm, bn, bk),
+                pad_rows=False)
             dx = dx[:x.shape[0], :x.shape[1]].to(x.dtype)
         if ctx.needs_input_grad[1]:
             dy = _dispatch.block_matmul(
-                x.T, g.to(x.dtype), run.permute(2, 1, 0).contiguous(),
-                (bk, bm, bn), pad_rows=False)
+                x.T, gx, run.permute(2, 1, 0).contiguous(), (bk, bm, bn),
+                pad_rows=False)
             dy = dy[:y.shape[0], :y.shape[1]].to(y.dtype)
         return dx, dy, None, None
 

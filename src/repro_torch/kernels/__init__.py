@@ -2,7 +2,8 @@
 
 ``gemm``, ``spdmm``, ``spmm``, ``csr_spmm``, ``profile`` (``tile_nnz``)
 and ``flash_attention`` port the Pallas kernels of ``repro.kernels``;
-``dispatch`` is the executor's one-launch block path and ``edge_softmax``
+``dispatch`` is the executor's one-launch block path, ``dispatch_bwd``
+its masked VJP on bf16 grids, and ``edge_softmax``
 GAT's masked edge-softmax (jnp in the reference's
 ``attention_adjacency``).  Each module holds its kernel's wrapper, its
 plain PyTorch version and its launch counter (``<module>.launches``;
@@ -11,11 +12,13 @@ the batched ``tile_nnz`` route counts in ``profile.batched_launches``);
 ``csrc/`` with ``nvcc`` at first use.
 """
 from repro_torch.kernels import (csr_spmm, dispatch,  # noqa: F401
-                                 edge_softmax, flash_attention, gemm, ops,
-                                 profile, spdmm, spmm)
+                                 dispatch_bwd, edge_softmax,
+                                 flash_attention, gemm, ops, profile, spdmm,
+                                 spmm)
 
 KERNEL_MODULES = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm,
                   "csr_spmm": csr_spmm, "dispatch": dispatch,
+                  "dispatch_bwd": dispatch_bwd,
                   "tile_nnz": profile, "flash_attention": flash_attention,
                   "edge_softmax": edge_softmax}
 

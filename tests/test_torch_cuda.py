@@ -1254,9 +1254,11 @@ def _grad_operands(m, k, n, block, dtype, device, seed=21):
     ((40, 160, 300), (16, 64, 128))])
 def test_dispatch_backward_matches_autograd_of_the_plain_version(
         cuda, dtype, tol, shape, block):
-    """The Function's dx and dw (two dispatch launches over the permuted
-    grids) against autograd through ``block_matmul_plain`` on the card;
-    dx exactly 0 where the forward SKIPped every step."""
+    """The Function's dx and dw (``dispatch_bwd``'s two products on bf16
+    grids with every edge in {64, 128, 256}, else two dispatch launches
+    over the permuted grids) against autograd through
+    ``block_matmul_plain`` on the card; dx exactly 0 where the forward
+    SKIPped every step."""
     from repro_torch.core import analyzer, dynasparse, profiler
     from repro_torch.core.perf_model import TPUCostModel
 
@@ -1277,8 +1279,11 @@ def test_dispatch_backward_matches_autograd_of_the_plain_version(
                                               pad_rows=False)[:m, :n]
         out.backward(g)
         torch.cuda.synchronize()
-        assert K.launch_counts()["dispatch"] == (3 if route == "kernel"
-                                                 else 0)
+        c = K.launch_counts()
+        want = ((0, 0) if route == "plain"
+                else (1, 2) if K.dispatch_bwd.takes(dtype, block)
+                else (3, 0))
+        assert (c["dispatch"], c["dispatch_bwd"]) == want
         grads.append((xs.grad, ws.grad))
     for got, want in zip(grads[0], grads[1]):
         assert got.dtype == dtype
@@ -1287,6 +1292,51 @@ def test_dispatch_backward_matches_autograd_of_the_plain_version(
         assert err <= tol, err
     assert torch.all(grads[0][0][:bm, bk:2 * bk] == 0)
     assert torch.all(grads[0][1][:bk, bn:2 * bn] == 0)
+
+
+@pytest.mark.parametrize("layout", ["nt", "tn"])
+@pytest.mark.parametrize("shape,block", [
+    ((512, 512, 768), (256, 256, 256)), ((300, 320, 400), (128, 64, 256)),
+    ((130, 192, 200), (64, 64, 128)), ((40, 64, 72), (64, 64, 64)),
+    ((256, 512, 256), (256, 128, 64)), ((2048, 2048, 10944),
+                                        (256, 256, 256))])
+def test_dispatch_bwd_matches_its_plain_versions(cuda, layout, shape, block):
+    """``dispatch_bwd`` on random GEMM/SPDMM/SPMM/SKIP grids: its float32
+    sums within 1e-4 of the largest |want| of the plain version's (the
+    order of the float32 sums differs), its bf16 result their rounding
+    bitwise, exact zeros where every step was SKIPped; one launch each."""
+    m, k, n = shape
+    bm, bk, bn = block
+    I, J, Kb = -(-m // bm), -(-n // bn), -(-k // bk)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + n)
+    codes = torch.randint(0, 4, (I, J, Kb), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((m, n), generator=gen, device=cuda).to(torch.bfloat16)
+    B = K.dispatch_bwd
+    fn, plain, a, b = ((B.block_matmul_nt, B.block_matmul_nt_plain, g, w)
+                       if layout == "nt" else
+                       (B.block_matmul_tn, B.block_matmul_tn_plain, x, g))
+    K.reset_launch_counts()
+    got = fn(a, b, codes, block)
+    k32 = fn(a, b, codes, block, out_dtype=torch.float32)
+    assert K.launch_counts()["dispatch_bwd"] == 2
+    want = plain(a, b, codes, block, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = float((k32.double() - want.double()).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, k32.to(torch.bfloat16))
+    run = codes != 0
+    if layout == "nt":
+        skipped = (run.sum(1) == 0).repeat_interleave(bm, 0)
+        skipped = skipped.repeat_interleave(bk, 1)[:m, :k]
+    else:
+        skipped = (run.sum(0) == 0).T.repeat_interleave(bk, 0)
+        skipped = skipped.repeat_interleave(bn, 1)[:k, :n]
+    assert torch.all(got[skipped] == 0)
 
 
 def test_cuda_routes_without_backward_refuse_a_gradient(cuda):

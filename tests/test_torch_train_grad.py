@@ -3,8 +3,10 @@
 * ``TokenPipeline`` (``data/tokens.py``) bitwise the reference's, batches
   and stub frames, over seeds, steps and shards;
 * ``dynasparse_matmul``'s gradient (``core/dynasparse.BlockMatmulFn``:
-  one ``dispatch`` forward, two backward launches over the permuted code
-  grid) against ``jax.grad`` of the reference's, with zero blocks planted
+  one ``dispatch`` forward; backward ``dispatch_bwd``'s two products over
+  the forward's grid on bf16 with every edge in {64, 128, 256}, else two
+  ``dispatch`` launches over the permuted code grid) against
+  ``jax.grad`` of the reference's, with zero blocks planted
   in x and in w: float32 within 3e-4, bf16 within 5e-2 (relative to the
   largest gradient), and dx exactly 0 in every block the forward SKIPped,
   as the reference's ``lax.switch`` gives, where the dense ``g @ w.T`` is
@@ -32,7 +34,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import dynasparse
 from repro_torch.core.perf_model import Primitive, TPUCostModel
 from repro_torch.data.tokens import TokenPipeline
-from repro_torch.kernels import build, dispatch, ops
+from repro_torch.kernels import build, dispatch, dispatch_bwd, ops
 from repro_torch.models import model_zoo
 from torch_train_pairs import family_step
 
@@ -93,7 +95,8 @@ def _grad_fns(fn):
 
 CASES = [((70, 96, 80), (32, 32, 32), False),
          ((100, 64, 48), (32, 16, 16), True),
-         ((40, 160, 300), (16, 64, 128), True)]
+         ((40, 160, 300), (16, 64, 128), True),
+         ((300, 320, 400), (128, 64, 256), True)]
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 3e-4),
@@ -115,14 +118,16 @@ def test_dynasparse_grad_is_the_reference_masked_vjp(
                                           jnp.asarray(w, jdt))
 
     calls = []
-    real = dispatch.block_matmul
+    for mod, name in ((dispatch, "block_matmul"),
+                      (dispatch_bwd, "block_matmul_nt"),
+                      (dispatch_bwd, "block_matmul_tn")):
+        def spy(x_, y_, codes, blk, _real=getattr(mod, name), _name=name,
+                **kw):
+            calls.append((_name, tuple(x_.shape), tuple(y_.shape), blk,
+                          sorted(set(codes.flatten().tolist()))))
+            return _real(x_, y_, codes, blk, **kw)
 
-    def spy(x_, y_, codes, blk, **kw):
-        calls.append((tuple(x_.shape), tuple(y_.shape), blk,
-                      sorted(set(codes.flatten().tolist()))))
-        return real(x_, y_, codes, blk, **kw)
-
-    monkeypatch.setattr(dispatch, "block_matmul", spy)
+        monkeypatch.setattr(mod, name, spy)
     tdt = getattr(torch, dtype)
     tx = torch.from_numpy(x).to(tdt).requires_grad_()
     tw = torch.from_numpy(w).to(tdt).requires_grad_()
@@ -132,14 +137,24 @@ def test_dynasparse_grad_is_the_reference_masked_vjp(
     np.testing.assert_array_equal(res.codes.numpy(), np.asarray(jcodes))
     assert "BlockMatmulFnBackward" in _grad_fns(res.out.grad_fn)
     (res.out.float() * torch.from_numpy(g)).sum().backward()
-    # one forward launch, then dx and dw over the permuted grids, whose
-    # codes are GEMM wherever the forward ran a step
+    # one forward launch, then dx and dw: on bf16 grids with every edge in
+    # {64, 128, 256} dispatch_bwd's two products over the forward's codes,
+    # else two dispatch launches over the permuted grids, whose codes are
+    # GEMM wherever the forward ran a step
     m, k = x.shape
     n = w.shape[1]
-    assert [c[:3] for c in calls] == [
-        ((m, k), (k, n), block), ((m, n), (n, k), (bm, bn, bk)),
-        ((k, m), (m, n), (bk, bm, bn))]
-    assert set(calls[1][3]) <= {0, 1} and set(calls[2][3]) <= {0, 1}
+    if dispatch_bwd.takes(tdt, block):
+        assert [c[:4] for c in calls] == [
+            ("block_matmul", (m, k), (k, n), block),
+            ("block_matmul_nt", (m, n), (k, n), block),
+            ("block_matmul_tn", (m, k), (m, n), block)]
+        assert calls[1][4] == calls[2][4] == calls[0][4]
+    else:
+        assert [c[:4] for c in calls] == [
+            ("block_matmul", (m, k), (k, n), block),
+            ("block_matmul", (m, n), (n, k), (bm, bn, bk)),
+            ("block_matmul", (k, m), (m, n), (bk, bm, bn))]
+        assert set(calls[1][4]) <= {0, 1} and set(calls[2][4]) <= {0, 1}
     if sparse_rows:
         assert set(np.unique(np.asarray(jcodes))) & {2, 3}
     for got, want in ((tx.grad, jgx), (tw.grad, jgw)):
