@@ -68,7 +68,9 @@ card at the shapes its path gives it, then drives the port's paths:
 * llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads, d_ff
   8192, vocab 128256, bf16, random seeded weights): the scoring forward
   (``loss_fn``) with ``attn_impl="flash"`` on 2 x 2048 tokens, checked
-  against the ``chunked`` attention; and ``ServeEngine`` on 8 requests of
+  against the ``chunked`` attention, in bf16 and (phase 8b) in float32
+  (the float32 flash route, 16 launches, its loss within ``TOL`` of the
+  chunked float32 loss); and ``ServeEngine`` on 8 requests of
   128 prompt tokens + 16 new tokens with FFN weights pruned to density
   0.1, once with ``dynasparse_ffn`` (tile_nnz + dispatch at (256, 256,
   256)) and once dense; then the smoke config's dynasparse == dense
@@ -86,20 +88,27 @@ card at the shapes its path gives it, then drives the port's paths:
   whisper-large-v3 on 2 x 3000 stub frames, 8 greedy steps against
   ``decoder_forward``; then the ten archs' smoke configs;
 * LM training (phase 11): the reference's masked VJP of ``dispatch`` at
-  llama3.2-1b's FFN shapes, bf16 (``dispatch_bwd``: wgmma fed by TMA,
-  the forward's operands and code grid read in place) and float32 (two
-  ``dispatch`` launches over the permuted grid), against autograd
+  llama3.2-1b's FFN shapes, bf16 (``dispatch_bwd``: wgmma fed by TMA)
+  and float32 (``dispatch_bwd``'s float32 route: FMA microtiles fed by
+  cp.async), the forward's operands and code grid read in place (no copy
+  kernel in a profiled float32 forward and backward), against autograd
   through the plain version, dx exactly 0 where the forward SKIPped;
-  ``dispatch_bwd`` against its plain versions (float32 sums within
-  ``DISPATCH_BF16_TOL``, its bf16 result their rounding bitwise) and
-  timed at the four FFN products, on a grid with half of w1's blocks
-  SKIPped and at deepseek's ragged 2048 x 10944 dense-first w1;
+  ``dispatch_bwd`` against its plain versions (bf16: float32 sums within
+  ``DISPATCH_BF16_TOL``, its bf16 result their rounding bitwise;
+  float32: within ``TOL`` of the largest |want|, and whether it equals
+  the two ``dispatch`` launches over the permuted grid that served
+  float32 before, timed beside it) and timed at the four FFN products,
+  on a grid with half of w1's blocks SKIPped and at deepseek's ragged
+  2048 x 10944 dense-first w1;
   llama3.2-1b at full width trained 4 steps (batch 8 x 256, lr 3e-3,
   float32 AdamW state) with ``dynasparse_ffn`` through
   ``make_train_step`` + ``Trainer`` + ``TokenPipeline`` (48 ``dispatch``,
   96 ``dispatch_bwd`` and 144 ``tile_nnz`` a step) and dense;
   ``launch/train.py`` with a failure at step 2 restarting from its
-  step-2 checkpoint, equal to the uninterrupted dense run;
+  step-2 checkpoint, equal to the uninterrupted dense run; one warm and
+  one profiled float32 dynasparse step (the same launches a step), its
+  first loss and gradient norm within ``TOL`` of a dense float32 step on
+  the same weights and batch;
 * the dry run (phase 12): the int8 error-feedback gradient all-reduce
   (``distributed.collectives``) over a one-rank NCCL group on a tree of
   llama3.2-1b's full-width gradient shapes, timed beside its bytes-moved
@@ -114,8 +123,11 @@ card at the shapes its path gives it, then drives the port's paths:
   argument and output leaf under a spec.
 
 bf16 operands run on the tensor-core routes of ``dispatch`` and
-``flash_attention`` (``mma.sync``) and ``dispatch_bwd`` (``wgmma``), float32 on the FP32 FMA routes
-(register microtiles fed by ``cp.async`` or double buffers); each
+``flash_attention`` (``mma.sync``) and ``dispatch_bwd`` (``wgmma``),
+float32 on the FP32 FMA routes (register microtiles fed by ``cp.async``
+or double buffers); the kernels line names both routes of
+``flash_attention`` and ``dispatch_bwd``, the float32 ones with the
+launches of the float32 scoring batch and training steps; each
 ``kernel`` record names its route (``mma``, ``fma``, or ``simt`` for the
 integer ``tile_nnz``).  ``gemm`` is also timed at the 16-wide shapes the
 path launches, and must equal the float32 ``dispatch`` with all-GEMM codes
@@ -938,12 +950,16 @@ def main() -> int:
     kernels_line["flash_attention"]["launches"] = \
         lm_counts["score"]["flash_attention"]
     kernels_line[LM_DISPATCH]["launches"] = lm_counts["serve"]["dispatch"]
+    kernels_line[LM_FLASH_F32]["launches"] = \
+        lm_counts["score_f32"]["flash_attention"]
     kernels_line["dispatch_bwd"]["launches"] = train_counts["dispatch_bwd"]
+    kernels_line[BWD_F32]["launches"] = train_counts[BWD_F32]
     kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
     kernels_line["tile_nnz_batched"]["launches"] = \
         serve_counts["tile_nnz_batched"]
     kernels_line[PADDED_TILE_NNZ]["launches"] = padded_counts["tile_nnz"]
-    check(set(K.launch_counts()) | {LM_DISPATCH, PADDED_TILE_NNZ}
+    check(set(K.launch_counts()) | {LM_DISPATCH, PADDED_TILE_NNZ,
+                                    LM_FLASH_F32, BWD_F32}
           == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
@@ -2798,6 +2814,8 @@ SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_DENSITY = 4, 144, 0.1
 # decode; w1, w2 and w3), its times those of the most frequent call, a
 # decode step's FFN w1 product
 LM_DISPATCH = "dispatch (bf16, tensor cores)"
+LM_FLASH_F32 = "flash_attention (float32)"
+BWD_F32 = "dispatch_bwd (float32)"
 
 
 def leaves(tree):
@@ -3211,13 +3229,12 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
            max_abs_err=float((ops.flash_attention(q, k, v, causal=True)
                               .float() - lib().float()).abs().max()))
     # the float32 route (FMA units) at the scoring shape, beside SDPA in
-    # float32; only checks and tests use it
+    # float32: the float32 scoring path of phase 8 launches it
     q32, k32, v32 = (t_.float() for t_ in (q, k, v))
     kr32 = k32.repeat_interleave(h // hkv, 1)
     vr32 = v32.repeat_interleave(h // hkv, 1)
     kernel_entry(
-        "flash_attention (float32)",
-        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        LM_FLASH_F32, "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:75",
         lambda: ops.flash_attention(q32, k32, v32, causal=True),
         lambda: K.flash_attention.flash_attention_plain(
@@ -3226,7 +3243,8 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
         lambda: F.scaled_dot_product_attention(q32, kr32, vr32,
                                                is_causal=True),
         (4.0 * hd * pairs, 4.0 * (2 * q.numel() + k.numel() + v.numel())),
-        lambda g, w: True, line=False,
+        lambda g, w: float((g - w).abs().max())
+        <= TOL * float(w.abs().max()),
         lib_call="scaled_dot_product_attention (float32, kv repeated)")
     del q32, k32, v32, kr32, vr32
     # the reference's edge semantics, on the float32 (FMA) route at 3e-4
@@ -3367,6 +3385,7 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
                seconds_per_batch=ms / 1e3,
                tokens_per_s=SCORE_BATCH * SCORE_SEQ / (ms / 1e3),
                peak_memory_bytes=peak, card=card)
+    counts["score_f32"] = score_f32(torch, cfg, batch, dev, card)
 
     # ---------------- phase 9: LM serving, full width ---------------------
     ds_bundle = model_zoo.build(replace(cfg, dynasparse_ffn=True), device=dev)
@@ -3483,6 +3502,53 @@ def lm_paths(torch, np, K, dev, card, A, kernel_entry, small_checks) -> dict:
 
 # phase 10: the LM layer kinds (MoE, MLA, mamba, xLSTM, encoder-decoder)
 # at full width, each model freed before the next
+def score_f32(torch, cfg, batch, dev, card) -> dict:
+    """Phase 8b: one batch of ``cfg`` scored at full width in float32 with
+    ``attn_impl="flash"`` (the float32 flash route, one launch a layer),
+    its loss held within ``TOL`` relative to the same batch scored with
+    ``attn_impl="chunked"`` in float32; wall, busy time and peak memory.
+    Returns the window's launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.kernels as K
+    from repro_torch.models import model_zoo, transformer
+
+    t0 = time.perf_counter()
+    flash = dataclasses.replace(cfg, dtype="float32", attn_impl="flash")
+    chunked = dataclasses.replace(flash, attn_impl="chunked")
+    params = model_zoo.build(flash, device=dev).init_params(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        loss = float(transformer.loss_fn(flash, params, batch))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        want = float(transformer.loss_fn(chunked, params, batch))
+        wall = wall_ms(torch, lambda: transformer.loss_fn(flash, params,
+                                                          batch))
+        prof = profile_device(torch, lambda: transformer.loss_fn(
+            flash, params, batch), n=1, top=6)
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(loss - want) / abs(want)
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"float32 scoring launched flash {counts['flash_attention']} "
+          f"times, expected {cfg.n_layers}")
+    check(np.isfinite(loss) and rel <= TOL,
+          f"float32 flash loss {loss} vs chunked {want} (rel {rel})")
+    record("lm_score_f32", arch=cfg.name, batch=SCORE_BATCH, seq=SCORE_SEQ,
+           dtype="float32", loss_flash=loss, loss_chunked=want,
+           rel_err=rel, tol=TOL, launches=counts, median_ms=wall,
+           tokens_per_s=SCORE_BATCH * SCORE_SEQ / (wall / 1e3),
+           profile=prof, peak_memory_bytes=peak,
+           seconds=time.perf_counter() - t0, card=card)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 DS_ARCH = "deepseek-v2-lite-16b"
 DS_REQUESTS, DS_PROMPT, DS_NEW, DS_SLOTS = 4, 64, 8, 4
 JAMBA_BATCH, JAMBA_PROMPT = 2, 256        # one period: n_layers 8
@@ -4070,13 +4136,16 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     (2048 tokens; w1 2048 -> 8192, w2 8192 -> 2048) in bf16 and float32
     against autograd through ``block_matmul_plain``, zero 256-blocks
     planted in x and w, each backward product checked against its plain
-    version and timed (bf16: ``dispatch_bwd``, also on a grid with half
-    of w1's blocks SKIPped and at a ragged width); (b) four training
-    steps at full width with ``dynasparse_ffn`` (``make_train_step`` +
+    version and timed (``dispatch_bwd``, both types, also on a grid with
+    half of w1's blocks SKIPped and at a ragged width; float32 also as
+    the two ``dispatch`` launches it replaced); (b) four training steps
+    at full width with ``dynasparse_ffn`` (``make_train_step`` +
     ``Trainer`` + ``TokenPipeline``), launches per step counted, and the
     same four steps dense; (c) ``launch.train.main`` with a failure at
     step 2 and a restart from the step-2 checkpoint, held to the dense
-    run.  Returns the launch counts of (b)'s window."""
+    run; (d) one warm and one profiled float32 dynasparse step, held to
+    a dense float32 step.  Returns the launch counts of (b)'s and (d)'s
+    windows."""
     import contextlib
     import io
     import shutil
@@ -4118,6 +4187,19 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
         return skipped.repeat_interleave(bm, 0).repeat_interleave(
             bk, 1)[:m, :k], skipped
 
+    def two_launch(layout, a, b, codes):
+        """The float32 route before ``dispatch_bwd_f32``: two ``dispatch``
+        launches over a transposed operand and the permuted GEMM/SKIP
+        grid, as ``BlockMatmulFn`` still runs them at edges below 64."""
+        run = (codes != 0).to(torch.int32)
+        if layout == "nt":
+            return K.dispatch.block_matmul(
+                a, b.T, run.permute(0, 2, 1).contiguous(), (bm, bn, bk),
+                pad_rows=False)[:a.shape[0], :b.shape[0]]
+        return K.dispatch.block_matmul(
+            a.T, b, run.permute(2, 1, 0).contiguous(), (bk, bm, bn),
+            pad_rows=False)[:a.shape[1], :b.shape[1]]
+
     x = operand(tokens, cfg.d_model, 1.0)
     w1 = operand(cfg.d_model, cfg.d_ff, cfg.d_model ** -0.5)
     h = operand(tokens, cfg.d_ff, 1.0)
@@ -4145,14 +4227,36 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                 torch.cuda.synchronize()
                 c = K.launch_counts()
                 launched = (c["dispatch"], c["dispatch_bwd"])
-                want = ((0, 0) if route == "plain" else (1, 2) if bf16
-                        else (3, 0))
+                want = ((0, 0) if route == "plain" else (1, 2)
+                        if K.dispatch_bwd.takes(dtype, blk) else (3, 0))
                 check(launched == want,
                       f"backward {label} {prod}: {launched} dispatch, "
                       f"dispatch_bwd launches by the {route} route "
                       f"(want {want})")
                 grads[route] = (xr.grad, wr.grad)
                 del out, xr, wr
+            copies = {}
+            if not bf16:    # the copy kernels of a float32 forward and
+                # backward (none: g, w, x and the codes read in place),
+                # beside the two-launch route's products
+                xr = xs.clone().requires_grad_()
+                wr = ws.clone().requires_grad_()
+                copies = {route: profile_device(
+                    torch, fn, n=1, top=8, warm=False, windows=1)
+                    for route, fn in (
+                        ("kernel", lambda: dynasparse.BlockMatmulFn.apply(
+                            xr, wr, codes, blk).backward(g)),
+                        ("two_launch", lambda: (
+                            two_launch("nt", g, ws, codes),
+                            two_launch("tn", xs, g, codes))))}
+                copies = {route: {k: p_.get(k) for k in (
+                    "complete", "copy_launches", "copy_ms",
+                    "top_device_ops")} for route, p_ in copies.items()}
+                check(not copies["kernel"]["complete"]
+                      or copies["kernel"]["copy_launches"] == 0,
+                      f"float32 backward {prod}: copy kernels "
+                      f"{copies['kernel']}")
+                del xr, wr
             mask, skipped = skipped_rows(codes, m, xs.shape[1])
             check(bool(skipped[0, 1]), f"{prod}: the planted zero block "
                   "of x was not SKIPped by every step")
@@ -4176,7 +4280,7 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                    skipped_x_blocks=int(skipped.sum()),
                    dense_dx_in_skipped=float(dense[mask].abs().max()),
                    rel_err_vs_autograd_of_plain=errs,
-                   tol=BF16_TOL if bf16 else TOL)
+                   tol=BF16_TOL if bf16 else TOL, copy_kernels=copies)
             backward_cases[(label, prod)] = (xs, ws, g.to(dtype), codes)
             del grads, dense, mask
 
@@ -4196,18 +4300,32 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                        lambda a, b: torch.matmul(a.T, b))}
 
     def bwd_entry(case, layout, a, b, codes, line=False, zero=None):
-        """Check and time one ``dispatch_bwd`` product: its float32 sums
-        within ``DISPATCH_BF16_TOL`` of the plain version's, its bf16
+        """Check and time one ``dispatch_bwd`` product.  bf16: its float32
+        sums within ``DISPATCH_BF16_TOL`` of the plain version's, its bf16
         result (the one the training path takes and the one timed) their
-        rounding, bitwise, and 0 on ``zero``."""
+        rounding, bitwise.  float32: within ``TOL`` of the largest |want|
+        of the plain version, and whether it equals the two-launch route
+        bitwise (recorded).  Both 0 on ``zero``."""
         fn, plain, lib = products[layout]
+        f32 = a.dtype == torch.float32
 
         def compare(got, want, tol):
+            zeros = zero is None or bool(torch.all(got[zero] == 0))
+            if f32:
+                err, ok = rel_to_max(got, want, tol)
+                old = two_launch(layout, a, b, codes)
+                record("dispatch_bwd_check", case=case, layout=layout,
+                       dtype="float32", max_abs_err=err,
+                       max_abs_want=float(want.abs().max()), tol=tol,
+                       zero_where_skipped=zeros,
+                       bitwise_two_launch=bool(torch.equal(got, old)),
+                       bitwise_plain=bool(torch.equal(got, want)))
+                del old
+                return err, ok and zeros
             k32 = fn(a, b, codes, blk, out_dtype=torch.float32)
             p32 = plain(a, b, codes, blk, out_dtype=torch.float32)
             err, ok = rel_to_max(k32, p32, tol)
             rounded = torch.equal(got, k32.to(got.dtype))
-            zeros = zero is None or bool(torch.all(got[zero] == 0))
             record("dispatch_bwd_check", case=case, layout=layout,
                    max_abs_err_f32=err,
                    max_abs_want=float(p32.abs().max()), tol=tol,
@@ -4218,28 +4336,33 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
             return err, ok and rounded and zeros
 
         return kernel_entry(
-            case, "src/repro_torch/kernels/csrc/dispatch_bwd.cu",
+            case, "src/repro_torch/kernels/csrc/" + (
+                "dispatch_bwd_f32.cu" if f32 else "dispatch_bwd.cu"),
             "src/repro/core/dynasparse.py:239",
             lambda: fn(a, b, codes, blk), lambda: plain(a, b, codes, blk),
             lambda: lib(a, b), bwd_work(torch, layout, a, b, codes, blk),
-            lambda g_, w_: True, tol=DISPATCH_BF16_TOL, peak=PEAK_BF16,
-            units="wgmma", line=line, line_name="dispatch_bwd",
-            compare=compare,
+            lambda g_, w_: True, tol=TOL if f32 else DISPATCH_BF16_TOL,
+            peak=PEAK_FP32 if f32 else PEAK_BF16,
+            units="fma" if f32 else "wgmma", line=line,
+            line_name=BWD_F32 if f32 else "dispatch_bwd", compare=compare,
             lib_call="torch.matmul (the operand transposed, a view)")
 
     # each backward product as the Function makes it, timed
     for (label, prod), (xs, ws, gd, codes) in backward_cases.items():
+        tag = "" if label == "bf16" else "float32, "
+        mask = skipped_rows(codes, *xs.shape)[0]
+        bwd_entry(f"dispatch_bwd ({tag}dx of {prod}: {tuple(gd.shape)} @ "
+                  f"{tuple(ws.shape)}.T)", "nt", gd, ws, codes,
+                  line=prod == "w1", zero=mask)
+        bwd_entry(f"dispatch_bwd ({tag}dw of {prod}: {tuple(xs.shape)}.T @ "
+                  f"{tuple(gd.shape)})", "tn", xs, gd, codes)
         if label == "bf16":
-            mask = skipped_rows(codes, *xs.shape)[0]
-            bwd_entry(f"dispatch_bwd (dx of {prod}: {tuple(gd.shape)} @ "
-                      f"{tuple(ws.shape)}.T)", "nt", gd, ws, codes,
-                      line=prod == "w1", zero=mask)
-            bwd_entry(f"dispatch_bwd (dw of {prod}: {tuple(xs.shape)}.T @ "
-                      f"{tuple(gd.shape)})", "tn", xs, gd, codes)
             continue
-        # float32: two dispatch launches (fma route) over the permuted
-        # grids, checked and timed by CUDA events only (the float32
-        # dispatch equals its plain version bitwise)
+        # float32 beside it: the two dispatch launches (fma route) over the
+        # permuted grids that served it before dispatch_bwd_f32 (and still
+        # serve float32 at edges below 64), checked and timed by CUDA
+        # events only (the float32 dispatch equals its plain version
+        # bitwise)
         run = (codes != 0).to(torch.int32)
         for name, a, b, c, b_ in (
                 ("dx", gd, ws.T, run.permute(0, 2, 1).contiguous(),
@@ -4269,35 +4392,37 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                    in_kernels_line=False)
             del got, want
 
-    # a pruned grid: about half of w1's 256-blocks zero, so SKIPped
-    xs, _, gd, _ = backward_cases[("bf16", "w1")]
-    wh = w1.to(torch.bfloat16)
-    kb, jb = wh.shape[0] // bk, wh.shape[1] // bn
+    # a pruned grid: about half of w1's 256-blocks zero, so SKIPped; and
+    # deepseek's dense-first w1: a ragged width, 42.75 blocks of 256; in
+    # bf16 and in float32
+    kb, jb = w1.shape[0] // bk, w1.shape[1] // bn
     gone = torch.rand((kb, jb), generator=gen, device=dev) < 0.5
-    wh = wh * (~gone).repeat_interleave(bk, 0).repeat_interleave(
-        bn, 1).to(wh.dtype)
-    codes = planned(xs, wh)
-    record("dispatch_bwd_pruned_grid", w_blocks_zero=int(gone.sum()),
-           w_blocks=kb * jb, codes_histogram=torch.bincount(
-               codes.flatten().long(), minlength=4).tolist(),
-           active_steps=int((codes != 0).sum()), steps=codes.numel())
-    bwd_entry(f"dispatch_bwd (dx of w1, {int(gone.sum())} of {kb * jb} "
-              "w blocks zero)", "nt", gd, wh, codes,
-              zero=skipped_rows(codes, *xs.shape)[0])
-    bwd_entry(f"dispatch_bwd (dw of w1, {int(gone.sum())} of {kb * jb} "
-              "w blocks zero)", "tn", xs, gd, codes)
-    # deepseek's dense-first w1: a ragged width, 42.75 blocks of 256
-    wr = operand(cfg.d_model, RAGGED_FF, cfg.d_model ** -0.5).to(
-        torch.bfloat16)
-    gr = torch.randn((tokens, RAGGED_FF), generator=gen, device=dev).to(
-        torch.bfloat16)
-    codes = planned(xs, wr)
-    bwd_entry(f"dispatch_bwd (dx, ragged: {tuple(gr.shape)} @ "
-              f"{tuple(wr.shape)}.T)", "nt", gr, wr, codes,
-              zero=skipped_rows(codes, *xs.shape)[0])
-    bwd_entry(f"dispatch_bwd (dw, ragged: {tuple(xs.shape)}.T @ "
-              f"{tuple(gr.shape)})", "tn", xs, gr, codes)
-    del backward_cases, x, w1, h, w2, xs, gd, wh, wr, gr
+    keep = (~gone).repeat_interleave(bk, 0).repeat_interleave(bn, 1)
+    wr32 = operand(cfg.d_model, RAGGED_FF, cfg.d_model ** -0.5)
+    gr32 = torch.randn((tokens, RAGGED_FF), generator=gen, device=dev)
+    for label in ("bf16", "f32"):
+        tag = "" if label == "bf16" else "float32, "
+        xs, _, gd, _ = backward_cases[(label, "w1")]
+        wh = w1.to(xs.dtype) * keep.to(xs.dtype)
+        codes = planned(xs, wh)
+        record("dispatch_bwd_pruned_grid", dtype=label,
+               w_blocks_zero=int(gone.sum()), w_blocks=kb * jb,
+               codes_histogram=torch.bincount(
+                   codes.flatten().long(), minlength=4).tolist(),
+               active_steps=int((codes != 0).sum()), steps=codes.numel())
+        bwd_entry(f"dispatch_bwd ({tag}dx of w1, {int(gone.sum())} of "
+                  f"{kb * jb} w blocks zero)", "nt", gd, wh, codes,
+                  zero=skipped_rows(codes, *xs.shape)[0])
+        bwd_entry(f"dispatch_bwd ({tag}dw of w1, {int(gone.sum())} of "
+                  f"{kb * jb} w blocks zero)", "tn", xs, gd, codes)
+        wr, gr = wr32.to(xs.dtype), gr32.to(xs.dtype)
+        codes = planned(xs, wr)
+        bwd_entry(f"dispatch_bwd ({tag}dx, ragged: {tuple(gr.shape)} @ "
+                  f"{tuple(wr.shape)}.T)", "nt", gr, wr, codes,
+                  zero=skipped_rows(codes, *xs.shape)[0])
+        bwd_entry(f"dispatch_bwd ({tag}dw, ragged: {tuple(xs.shape)}.T @ "
+                  f"{tuple(gr.shape)})", "tn", xs, gr, codes)
+    del backward_cases, x, w1, h, w2, xs, gd, wh, wr, gr, wr32, gr32
     torch.cuda.empty_cache()
     a_s = time.perf_counter() - t_phase
 
@@ -4308,8 +4433,8 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
         return {k: torch.from_numpy(v).to(dev, torch.long)
                 for k, v in pipe.batch_for_step(step).items()}
 
-    def trainer_for(dyn, steps_log):
-        c = dataclasses.replace(cfg, dynasparse_ffn=dyn)
+    def trainer_for(dyn, steps_log, dtype=cfg.dtype):
+        c = dataclasses.replace(cfg, dynasparse_ffn=dyn, dtype=dtype)
         bundle = model_zoo.build(c, device=dev)
         opt = AdamW(lr=TRAIN_LR, warmup_steps=20, total_steps=TRAIN_STEPS,
                     state_dtype=c.opt_state_dtype)
@@ -4358,19 +4483,23 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     peak = torch.cuda.max_memory_allocated()
     walls = list(trainer._times)
     per_layer = 3 * cfg.n_layers          # w1, w3, w2 of every layer
-    for i, s in enumerate(logs[True]):
-        fwd_d, tot_d = s["forward"]["dispatch"], s["total"]["dispatch"]
-        bwd = s["total"]["dispatch_bwd"]
-        check(fwd_d == tot_d == per_layer and bwd == 2 * per_layer
-              and s["forward"]["dispatch_bwd"] == 0
-              and s["total"]["tile_nnz"] == 3 * per_layer
-              and s["forward"]["tile_nnz"] == 3 * per_layer,
-              f"train step {i}: dispatch {fwd_d} forward / {tot_d - fwd_d} "
-              f"backward, dispatch_bwd {bwd}, tile_nnz "
-              f"{s['total']['tile_nnz']} (want {per_layer} / 0, "
-              f"{2 * per_layer}, {3 * per_layer})")
-        check(all(np.isfinite(v) for v in s["metrics"].values()),
-              f"train step {i}: {s['metrics']}")
+
+    def check_steps(steps_log, label):
+        for i, s in enumerate(steps_log):
+            fwd_d, tot_d = s["forward"]["dispatch"], s["total"]["dispatch"]
+            bwd = s["total"]["dispatch_bwd"]
+            check(fwd_d == tot_d == per_layer and bwd == 2 * per_layer
+                  and s["forward"]["dispatch_bwd"] == 0
+                  and s["total"]["tile_nnz"] == 3 * per_layer
+                  and s["forward"]["tile_nnz"] == 3 * per_layer,
+                  f"{label} train step {i}: dispatch {fwd_d} forward / "
+                  f"{tot_d - fwd_d} backward, dispatch_bwd {bwd}, tile_nnz "
+                  f"{s['total']['tile_nnz']} (want {per_layer} / 0, "
+                  f"{2 * per_layer}, {3 * per_layer})")
+            check(all(np.isfinite(v) for v in s["metrics"].values()),
+                  f"{label} train step {i}: {s['metrics']}")
+
+    check_steps(logs[True], "bf16")
     check(window["dispatch"] == per_layer * TRAIN_STEPS
           and window["dispatch_bwd"] == 2 * per_layer * TRAIN_STEPS
           and window["tile_nnz"] == 3 * per_layer * TRAIN_STEPS,
@@ -4453,10 +4582,53 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     del restarted, dense
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # ---- (d) float32: one warm and one profiled dynasparse step --------
+    # (dispatch_bwd's float32 route), held to a dense float32 step on the
+    # same weights and batch
+    t0 = time.perf_counter()
+    logs32 = {True: [], False: []}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = trainer_for(True, logs32[True], "float32")
+    K.reset_launch_counts()
+    trainer.run(1, log=lines.append)
+    prof32 = profile_device(torch, lambda: trainer.run(1, log=lines.append),
+                            n=1, top=20, warm=False, windows=1)
+    torch.cuda.synchronize()
+    window32 = K.launch_counts()
+    peak32 = torch.cuda.max_memory_allocated()
+    walls32 = list(trainer._times)
+    check_steps(logs32[True], "float32")
+    check(window32["dispatch"] == 2 * per_layer
+          and window32["dispatch_bwd"] == 4 * per_layer
+          and window32["tile_nnz"] == 6 * per_layer,
+          f"float32 train window launches {window32}")
+    del trainer
+    torch.cuda.empty_cache()
+    dense32 = trainer_for(False, logs32[False], "float32")
+    dense32.run(1, log=lines.append)
+    del dense32
+    torch.cuda.empty_cache()
+    first32 = {k: (logs32[True][0]["metrics"][k],
+                   logs32[False][0]["metrics"][k])
+               for k in ("loss", "grad_norm")}
+    rel32 = {k: abs(a - b) / abs(b) for k, (a, b) in first32.items()}
+    check(all(r <= TOL for r in rel32.values()),
+          f"float32 dynasparse vs dense first step: {first32}")
+    record("train_dynasparse_f32", arch=cfg.name, dtype="float32",
+           batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+           metrics=[s["metrics"] for s in logs32[True]],
+           dense_metrics=[s["metrics"] for s in logs32[False]],
+           first_step_dynasparse_vs_dense=first32, first_step_rel=rel32,
+           tol=TOL, step_launches=logs32[True][0]["total"],
+           window_launches=window32, step_wall_s=walls32,
+           peak_memory_bytes=peak32, profiled_step=prof32,
+           seconds=time.perf_counter() - t0, card=card)
     record("phase", name="11 LM training",
            seconds=time.perf_counter() - t_phase, card=card)
     return {"dispatch_bwd": sum(s["total"]["dispatch_bwd"]
-                                for s in logs[True])}
+                                for s in logs[True]),
+            BWD_F32: window32["dispatch_bwd"]}
 
 
 # phase 12: the dry run.  (a) the int8 error-feedback all-reduce over a
@@ -4719,7 +4891,9 @@ def profile_device(torch, fn, n: int = 3, top: int = 10, warm: bool = True,
     ``torch.profiler`` over ``n`` calls after a warm-up call (none when
     ``warm`` is False, for a call that must run a set number of times, as
     a training step; then ``windows=1``: a window is not taken again) (the
-    profiler's own overhead is in ``wall_ms_profiled``).
+    profiler's own overhead is in ``wall_ms_profiled``); the copy kernels
+    (a name holding "copy") are summed apart as ``copy_launches`` and
+    ``copy_ms``.
 
     On the H100 the profiler sometimes drops the first device events of
     a window (a kernel then counts 0.4 or 0.8 launches a call), and no
@@ -4768,9 +4942,12 @@ def profile_device(torch, fn, n: int = 3, top: int = 10, warm: bool = True,
                 "complete": False, "top_device_ops": []}
     busy = sum(dev_ms(e) for e in events)
     ops = sorted(events, key=dev_ms, reverse=True)[:top]
+    copies = [e for e in events if "copy" in e.key.lower()]
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms, "windows": window,
             "complete": True,
+            "copy_launches": sum(e.count for e in copies) / n,
+            "copy_ms": sum(dev_ms(e) for e in copies),
             "top_device_ops": [[e.key[:80], dev_ms(e), e.count / n]
                                for e in ops]}
 
@@ -4821,7 +4998,7 @@ def bwd_work(torch, layout, a, b, codes, block) -> tuple:
     step's block product over the rows, columns and depth that lie inside
     the operands (a tile no step reaches is written as zeros), every
     operand block that one active step reads, read once, the code grid
-    read and the bf16 result written once."""
+    read and the result (the operands' type) written once."""
     bm, bk, bn = block
     I, J, Kb = codes.shape
     run = (codes != 0).double()                             # (I, J, Kb)
@@ -4842,8 +5019,9 @@ def bwd_work(torch, layout, a, b, codes, block) -> tuple:
         other = torch.einsum("jk,k,j->", (run.sum(0) > 0).double(), k, c)
     else:                   # x's (i, k) blocks
         other = torch.einsum("ik,i,k->", (run.sum(1) > 0).double(), r, k)
-    nbytes = (2.0 * (g_bytes + other) + 4.0 * codes.numel()
-              + 2.0 * kd * (m if layout == "nt" else n))
+    size = a.element_size()     # operands and result: one type
+    nbytes = (size * (g_bytes + other) + 4.0 * codes.numel()
+              + size * kd * (m if layout == "nt" else n))
     return float(flops), float(nbytes)
 
 if __name__ == "__main__":

@@ -106,11 +106,11 @@ class BlockMatmulFn(torch.autograd.Function):
     dense ``g @ y.T`` is not.  ``g`` is cast once to the operands' type
     (bf16 cotangents of a bf16 result are exact).
 
-    bf16 operands at a block whose edges are all in
-    ``dispatch_bwd.EDGES`` take ``dispatch_bwd``'s two launches, which
-    read x, y, g and the forward's codes in place (``block_matmul_nt`` for
-    dx, ``block_matmul_tn`` for dy, each rounded once to the operand's
-    type).  Anything else takes two more ``dispatch`` launches on
+    bf16 or float32 operands at a block whose edges are all in
+    ``dispatch_bwd.EDGES`` take ``dispatch_bwd``'s two launches (the
+    kernel of their type), which read x, y, g and the forward's codes in
+    place (``block_matmul_nt`` for dx, ``block_matmul_tn`` for dy, each
+    rounded once to the operand's type).  Anything else takes two more ``dispatch`` launches on
     transposed operands over the code grid permuted, with GEMM wherever
     the forward ran a step:
 

@@ -3,7 +3,7 @@
 ``gemm``, ``spdmm``, ``spmm``, ``csr_spmm``, ``profile`` (``tile_nnz``)
 and ``flash_attention`` port the Pallas kernels of ``repro.kernels``;
 ``dispatch`` is the executor's one-launch block path, ``dispatch_bwd``
-its masked VJP on bf16 grids, and ``edge_softmax``
+its masked VJP on bf16 and float32 grids, and ``edge_softmax``
 GAT's masked edge-softmax (jnp in the reference's
 ``attention_adjacency``).  Each module holds its kernel's wrapper, its
 plain PyTorch version and its launch counter (``<module>.launches``;

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("gemm", "spdmm", "spmm", "csr_spmm", "dispatch", "dispatch_bwd",
-           "tile_nnz", "flash_attention", "edge_softmax")
+           "dispatch_bwd_f32", "tile_nnz", "flash_attention", "edge_softmax")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

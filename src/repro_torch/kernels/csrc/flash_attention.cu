@@ -31,14 +31,32 @@
 //     - CTAs start from the last query block, whose causal rows are the
 //       longest.
 //
-// * float32 (checks and tests at 3e-4, which P in bf16 would not meet),
-//   rt_flash_attention_f32, the first version on the FP32 FMA units: a
-//   CTA of 256 threads owns BQ = 256 / G query rows; a group of G = D / 16
-//   neighbouring lanes shares one query row, lane g holding dims g, g + G,
-//   ... (16 of them) of q and of the float32 accumulator, so a score is 16
-//   FMAs per lane and a butterfly of log2(G) shuffles; K and V stream
-//   through shared memory in tiles of BK = 256 / G keys, widened to
-//   float32; every 16 keys m, l and acc are rescaled once.
+// * float32 (checks, tests and float32 configs at 3e-4, which P in bf16
+//   would not meet), rt_flash_attention_f32, on the FP32 FMA units.  Bound
+//   on the H100: operations (4 * D flops per visible pair against FP32's
+//   67 TFLOP/s; llama3.2-1b's 2 x 2048 causal scoring batch: 0.51 ms).
+//   The first version gave each query row to D / 16 lanes holding 16 dims
+//   each, so every K and V value read from shared memory fed one FMA and
+//   shared-memory bandwidth capped it near a quarter of the FMA rate.  The
+//   design does this about it:
+//     - a CTA of 256 threads owns 128 query rows of one (b, h); S = Q K^T
+//       and O += P V are register-tiled products: a thread holds 8 rows x
+//       8 keys of S (4 at D = 128) and 8 rows x D / 16 dims of O, and
+//       every 16-byte shared load of Q or P feeds 32-64 FMAs;
+//     - Q stays in shared memory for the whole walk; K and V tiles of 128
+//       keys (64 at D = 128, where the larger tiles do not fit beside Q)
+//       stream through it by 16-byte cp.async, each loaded while the
+//       other half of the tile is multiplied (K of the next tile during
+//       the softmax and P V, V of the next during the next Q K^T);
+//     - the online softmax in the log2 domain (exp2f of scores scaled by
+//       log2(e) / sqrt(D), as the bf16 route): a row's 16 lanes combine
+//       their maxima with four shuffles, rescale O and their partial sums
+//       once per tile, and add the partial sums once at the end; only
+//       tiles that reach past the CTA's first unmasked key are masked
+//       element by element; P stays float32;
+//     - whole key tiles past the CTA's last processed key are never
+//       loaded; CTAs start from the last query block of every (b, h),
+//       whose causal rows are the longest.
 //
 // Semantics both routes keep from the reference, which the wrapper
 // (ops.py) relies on: queries sit at the end of the kv sequence (qpos =
@@ -56,29 +74,86 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PER_LANE = 16;   // head dims per lane
-constexpr int CHUNK = 16;      // keys per online-softmax rescale
+// ------------------------------------------------------------- float32 --
+
+constexpr int BQ = 128;        // query rows of a CTA, 8 per thread
+constexpr int THREADS = 256;   // 16 row groups x 16 lanes
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int G>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int H,
-             int rep, int Sq, int Skv, int bq, int bk, int causal,
-             float scale) {
-  constexpr int D = PER_LANE * G;
-  constexpr int BQ = THREADS / G;
-  constexpr int BK = THREADS / G;
-  __shared__ float ks[BK][D];
-  __shared__ float vs[BK][D];
+// Shared memory of the float32 route, in floats, for tiles of BK keys: Q
+// and K with rows padded by 16 bytes (the 16 key rows a half-warp reads at
+// once hit distinct banks), V as stored, P of the current tile (rows
+// padded by 64 bytes: the two rows a warp writes hit distinct banks).
+template <int D, int BK>
+struct F32Smem {
+  static constexpr int QS = D + 4;   // Q and K row stride
+  static constexpr int PS = BK + 16;   // P row stride
+  static constexpr int Q = BQ * QS, K = BK * QS, V = BK * D, P = BQ * PS;
+  static constexpr int BYTES = (Q + K + V + P) * 4;
+};
 
-  const int bh = blockIdx.y;
+// Dim c (0 .. D/16 - 1) of a thread's O columns: 4 neighbouring dims per
+// 16-byte load, lanes on neighbouring 16 bytes.
+template <int D>
+__device__ __forceinline__ int o_dim(int tx, int c) {
+  constexpr int DP = D / 16;
+  if constexpr (DP >= 4) return (c / 4) * 64 + tx * 4 + c % 4;
+  else return tx * DP + c;
+}
+
+template <int D>
+__device__ __forceinline__ void v_row(float (&v)[D / 16],
+                                      const float* row, int tx) {
+  constexpr int DP = D / 16;
+  if constexpr (DP >= 4) {
+#pragma unroll
+    for (int c4 = 0; c4 < DP / 4; ++c4) {
+      const float4 t = *reinterpret_cast<const float4*>(row + c4 * 64 + tx * 4);
+      v[4 * c4] = t.x;
+      v[4 * c4 + 1] = t.y;
+      v[4 * c4 + 2] = t.z;
+      v[4 * c4 + 3] = t.w;
+    }
+  } else if constexpr (DP == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(row + tx * 2);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = row[tx];
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int kk) {
+  return kk == 0 ? v.x : kk == 1 ? v.y : kk == 2 ? v.z : v.w;
+}
+
+// CTA c owns query rows [row0, row0 + BQ) of (b, h) = bh: the last query
+// block of every (b, h) first, then the one before (the longest causal
+// rows run first; kernels/flash_attention.py flash_launch_f32).  Thread
+// (ty, tx) holds rows ty + 16 i (i < 8): their scores against keys tx +
+// 16 j (j < BK / 16) of the tile and their O columns o_dim(tx, c).
+template <int D, int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int BH,
+                 int H, int rep, int Sq, int Skv, int bq, int bk, int causal,
+                 float scale_log2, int nq) {
+  using SM = F32Smem<D, BK>;
+  constexpr int QS = SM::QS, PS = SM::PS, DP = D / 16, CH = D / 4;
+  constexpr int KPT = BK / 16;   // keys of a thread; CH: 16-byte chunks
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + SM::Q;
+  float* vs = ks + SM::K;
+  float* ps = vs + SM::V;
+
+  const int cta = blockIdx.x;
+  const int bh = cta % BH;
+  const int row0 = (nq - 1 - cta / BH) * BQ;
   const int b = bh / H, h = bh % H;
   const int kvh = b * (H / rep) + h / rep;
-  const int g = threadIdx.x % G;
-  const int row0 = blockIdx.x * BQ;
-  const int row = row0 + threadIdx.x / G;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int off = Skv - Sq;   // queries aligned to the end of the kv
 
   // keys [0, L(r)) of row r are processed (the reference's block skip)
@@ -88,86 +163,182 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (q_end < 0) return 0;
     return min(Skv, (q_end / bk + 1) * bk);
   };
-  const int my_limit = row < Sq ? limit(row) : 0;
-  const int cta_limit = limit(min(row0 + BQ, Sq) - 1);
-  const int qpos = row + off;
+  const int cta_limit = limit(min(row0 + BQ, Sq) - 1);   // L nondecreasing
+  const int tiles = (cta_limit + BK - 1) / BK;
+  // keys below `clean` are processed and visible for every real row
+  int clean = limit(row0);
+  if (causal) clean = min(clean, row0 + off + 1);
+  int lim[8], qpos[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + ty + 16 * i;
+    lim[i] = r < Sq ? limit(r) : 0;
+    qpos[i] = r + off;
+  }
 
-  const float* qrow = q + ((long)bh * Sq + min(row, Sq - 1)) * D;
+  const float* qb = q + (long)bh * Sq * D;
   const float* kb = k + (long)kvh * Skv * D;
   const float* vb = v + (long)kvh * Skv * D;
-  float qr[PER_LANE], acc[PER_LANE];
-#pragma unroll
-  for (int i = 0; i < PER_LANE; ++i) {
-    qr[i] = qrow[g + G * i];
-    acc[i] = 0.f;
-  }
-  float m = NEG, l = 0.f;
-
-  for (int t0 = 0; t0 < cta_limit; t0 += BK) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-      const int kk = t0 + e / D;
-      const bool in = kk < Skv;
-      ks[e / D][e % D] = in ? kb[(long)kk * D + e % D] : 0.f;
-      vs[e / D][e % D] = in ? vb[(long)kk * D + e % D] : 0.f;
+  auto load_kv = [&](float* dst, const float* src, int stride, int t0) {
+    for (int c = tid; c < BK * CH; c += THREADS) {
+      const int r = c / CH, cc = c % CH, key = t0 + r;
+      rt::cp_async16(dst + r * stride + cc * 4,
+                     src + (long)min(key, Skv - 1) * D + cc * 4, key < Skv);
     }
-    __syncthreads();
-    for (int c0 = 0; c0 < BK && t0 + c0 < cta_limit; c0 += CHUNK) {
-      float s[CHUNK];
-      float m_cur = -INFINITY;
+  };
+
+  float oacc[8][DP], m[8], l[8];
 #pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        float part = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
 #pragma unroll
-        for (int i = 0; i < PER_LANE; ++i)
-          part = fmaf(qr[i], ks[c0 + c][g + G * i], part);
+    for (int c = 0; c < DP; ++c) oacc[i][c] = 0.f;
+  }
+
+  if (tiles > 0) {
+    for (int c = tid; c < BQ * CH; c += THREADS) {
+      const int r = c / CH, cc = c % CH, row = row0 + r;
+      rt::cp_async16(qs + r * QS + cc * 4,
+                     qb + (long)min(row, Sq - 1) * D + cc * 4, row < Sq);
+    }
+    load_kv(ks, kb, QS, 0);
+  }
+  rt::cp_async_commit();   // Q and K of tile 0
+  if (tiles > 0) load_kv(vs, vb, D, 0);
+  rt::cp_async_commit();   // V of tile 0
+
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = t * BK;
+    rt::cp_async_wait<1>();
+    __syncthreads();   // K of tile t (and Q) landed
+    // S = Q K^T: 8 rows x KPT keys, 4 dims per 16-byte load
+    float s[8][KPT];
 #pragma unroll
-        for (int w = G / 2; w > 0; w /= 2)
-          part += __shfl_xor_sync(0xffffffffu, part, w);
-        const int kpos = t0 + c0 + c;
-        float sc = part * scale;
-        if (kpos >= my_limit) sc = -INFINITY;         // never processed
-        else if (causal && kpos > qpos) sc = NEG;     // masked
-        s[c] = sc;
-        m_cur = fmaxf(m_cur, sc);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      float4 qf[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * QS +
+                                                 d4 * 4);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float4 kf = *reinterpret_cast<const float4*>(
+            ks + (tx + 16 * j) * QS + d4 * 4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            s[i][j] = fmaf(lane4(qf[i], kk), lane4(kf, kk), s[i][j]);
       }
-      const float m_new = fmaxf(m, m_cur);
-      const float alpha = expf(m - m_new);
+    }
+    __syncthreads();   // every thread is done with K
+    if (t + 1 < tiles) load_kv(ks, kb, QS, t0 + BK);
+    rt::cp_async_commit();
+
+    // scale (log2 domain), mask (only tiles that reach past `clean`),
+    // online softmax (a row's 16 lanes share its max), P
+    const bool edge = t0 + BK > clean;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int key = t0 + tx + 16 * j;
+          if (key >= lim[i]) x = -INFINITY;              // never processed
+          else if (causal && key > qpos[i]) x = NEG;     // masked
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int w = 1; w < 16; w *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - mn);
+      m[i] = mn;
       float psum = 0.f;
 #pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        s[c] = expf(s[c] - m_new);
-        psum += s[c];
+      for (int j = 0; j < KPT; ++j) {
+        s[i][j] = exp2f(s[i][j] - mn);
+        psum += s[i][j];
+        ps[(ty + 16 * i) * PS + tx + 16 * j] = s[i][j];
       }
-      l = alpha * l + psum;
+      l[i] = alpha * l[i] + psum;
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        float pv = 0.f;
-#pragma unroll
-        for (int c = 0; c < CHUNK; ++c)
-          pv = fmaf(s[c], vs[c0 + c][g + G * i], pv);
-        acc[i] = alpha * acc[i] + pv;
-      }
-      m = m_new;
+      for (int c = 0; c < DP; ++c) oacc[i][c] *= alpha;
     }
-  }
-  if (row < Sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* orow = o + ((long)bh * Sq + row) * D;
+    rt::cp_async_wait<1>();
+    __syncthreads();   // V of tile t landed; P written
+
+    // O += P V: 4 keys of P per 16-byte load
+#pragma unroll 2
+    for (int k4 = 0; k4 < BK / 4; ++k4) {
+      float4 pf[8];
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i)
-      orow[g + G * i] = acc[i] * inv;
+      for (int i = 0; i < 8; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * PS +
+                                                 k4 * 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float vv[DP];
+        v_row<D>(vv, vs + (k4 * 4 + kk) * D, tx);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < DP; ++c)
+            oacc[i][c] = fmaf(lane4(pf[i], kk), vv[c], oacc[i][c]);
+      }
+    }
+    __syncthreads();   // every thread is done with V and P
+    if (t + 1 < tiles) load_kv(vs, vb, D, t0 + BK);
+    rt::cp_async_commit();
+  }
+  rt::cp_async_wait<0>();
+
+  float* ob = o + (long)bh * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int w = 1; w < 16; w *= 2)
+      li += __shfl_xor_sync(0xffffffffu, li, w);
+    const int r = row0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    float* orow = ob + (long)r * D;
+    if constexpr (DP >= 4) {
+#pragma unroll
+      for (int c4 = 0; c4 < DP / 4; ++c4)
+        *reinterpret_cast<float4*>(orow + o_dim<D>(tx, 4 * c4)) =
+            make_float4(oacc[i][4 * c4] * inv, oacc[i][4 * c4 + 1] * inv,
+                        oacc[i][4 * c4 + 2] * inv, oacc[i][4 * c4 + 3] * inv);
+    } else {
+#pragma unroll
+      for (int c = 0; c < DP; ++c) orow[o_dim<D>(tx, c)] = oacc[i][c] * inv;
+    }
   }
 }
 
-template <int G>
+template <int D>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int B, int H, int Hkv, int Sq, int Skv, int bq, int bk,
-               int causal, float scale, cudaStream_t stream) {
-  constexpr int BQ = THREADS / G;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_kernel<G><<<grid, THREADS, 0, stream>>>(
-      q, k, v, o, H, H / Hkv, Sq, Skv, bq, bk, causal, scale);
+               int causal, float scale, int nq, cudaStream_t stream) {
+  constexpr int BK = D <= 64 ? 128 : 64;       // keys of a tile
+  constexpr int smem = F32Smem<D, BK>::BYTES;
+  auto kernel = flash_f32_kernel<D, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nq * B * H, THREADS, smem, stream>>>(
+      q, k, v, o, B * H, H, H / Hkv, Sq, Skv, bq, bk, causal, scale * LOG2E,
+      nq);
   return (int)cudaGetLastError();
 }
 
@@ -176,7 +347,6 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
 constexpr int FQ = 64;         // query rows per CTA, 16 per warp
 constexpr int FK = 64;         // keys per shared-memory tile
 constexpr int F_THREADS = 128;
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 constexpr int flash_smem_bytes() {
@@ -404,22 +574,25 @@ bool bad_args(int B, int H, int Hkv, int bq, int bk) {
 
 }  // namespace
 
-// q, o (B, H, Sq, D); k, v (B, Hkv, Skv, D); contiguous float32.  D in
-// {16, 32, 64, 128}; H % Hkv == 0; Sq % bq == 0 and Skv % bk == 0 (the
-// wrapper front-pads).
+// q, o (B, H, Sq, D); k, v (B, Hkv, Skv, D); contiguous float32, 16-byte
+// aligned base pointers.  D in {16, 32, 64, 128}; H % Hkv == 0; Sq % bq
+// == 0 and Skv % bk == 0 (the wrapper front-pads); query_blocks =
+// ceil(Sq / 128), as kernels/flash_attention.py flash_launch_f32 gives it.
 extern "C" int rt_flash_attention_f32(const float* q, const float* k,
                                       const float* v, float* o, int B, int H,
                                       int Hkv, int Sq, int Skv, int D, int bq,
                                       int bk, int causal, float scale,
-                                      void* stream) {
+                                      int query_blocks, void* stream) {
   if (bad_args(B, H, Hkv, bq, bk)) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq <= 0) return 0;
+  if (query_blocks != (Sq + BQ - 1) / BQ) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int nq = query_blocks;
   switch (D) {
-    case 16: return launch_f32<1>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, s);
-    case 32: return launch_f32<2>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, s);
-    case 64: return launch_f32<4>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, s);
-    case 128: return launch_f32<8>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, s);
+    case 16: return launch_f32<16>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, nq, s);
+    case 32: return launch_f32<32>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, nq, s);
+    case 64: return launch_f32<64>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, nq, s);
+    case 128: return launch_f32<128>(q, k, v, o, B, H, Hkv, Sq, Skv, bq, bk, causal, scale, nq, s);
   }
   return (int)cudaErrorInvalidValue;
 }

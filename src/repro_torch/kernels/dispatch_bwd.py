@@ -1,4 +1,5 @@
-"""The masked ``dispatch`` VJP on bf16 grids, as one Hopper kernel per product.
+"""The masked ``dispatch`` VJP on bf16 and float32 grids, as one Hopper
+kernel per product.
 
 The forward ``x @ w`` walks the planner's (I, J, K) code grid at ``block =
 (bm, bk, bn)`` (``kernels/dispatch.py``).  The reference's gradient of that
@@ -14,12 +15,23 @@ is masked per block step:
 An output block with no active step is exactly 0, and each result is
 rounded once from its float32 sum to the operands' type.
 
-On CUDA, ``csrc/dispatch_bwd.cu`` computes both from the forward's operands
-and code grid as they are: no transposed copy, no permuted grid.  Its CTAs
-walk ``tile_m x tile_n`` output tiles, each inside one output block
-(:func:`bwd_launch` picks them), loading that block's active contraction
-blocks (:func:`tile_walk` lists them) in 64-deep stages.  The kernel takes
-bf16 operands with every block edge in :data:`EDGES`; the plain versions
+On CUDA, both products are computed from the forward's operands and code
+grid as they are: no transposed copy, no permuted grid.  The route
+follows the operands' type:
+
+* bf16: ``csrc/dispatch_bwd.cu``, on the tensor cores (``wgmma`` fed by
+  TMA).  Its CTAs walk ``tile_m x tile_n`` output tiles, each inside one
+  output block (:func:`bwd_launch` picks them), loading that block's
+  active contraction blocks (:func:`tile_walk` lists them) in 64-deep
+  stages;
+* float32: ``csrc/dispatch_bwd_f32.cu``, on the FP32 FMA units with 8 x 8
+  register microtiles fed by ``cp.async`` (:func:`bwd_launch_f32` picks
+  its tiles, 128 x 128 at most).  Its sums round as the two ``dispatch``
+  launches over the permuted grids did, bit for bit: a fresh partial per
+  active contraction block, one ``fmaf`` chain in ascending order, then
+  ``acc += partial``.
+
+The kernels take every block edge in :data:`EDGES`; the plain versions
 take any type and edge.  :func:`takes` is the route rule of
 ``core/dynasparse.BlockMatmulFn``.
 """
@@ -36,8 +48,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 launches = 0
-EDGES = (64, 128, 256)      # block edges the kernel takes
+EDGES = (64, 128, 256)      # block edges the kernels take
 LAYOUTS = ("nt", "tn")
+DTYPES = (torch.bfloat16, torch.float32)   # the kernels' operand types
 GROUP = 8                   # tile rows of a group in the tiles' order
                             # (8 x 16 of a 16 x 32 grid in flight at once)
 # rt_dispatch_bwd's arguments: layout; a and b (pointer, rows, columns,
@@ -48,13 +61,16 @@ C_ARGS = ([ctypes.c_int]
           + [ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long] * 2
           + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_long] * 2
           + [ctypes.c_int] * 10 + [ctypes.c_long] * 3 + [ctypes.c_void_p])
+# rt_dispatch_bwd_f32's: the same without out_f32 (its sums are float32)
+C_ARGS_F32 = C_ARGS[:12] + C_ARGS[13:]
 
 
 def takes(dtype: torch.dtype, block: Tuple[int, int, int]) -> bool:
     """Whether the backward of a ``dtype`` forward at ``block`` runs on
-    this module (bf16 with every edge in :data:`EDGES`); anything else
-    keeps the two ``dispatch`` launches over the permuted grids."""
-    return dtype == torch.bfloat16 and all(b in EDGES for b in block)
+    this module (bf16 or float32 with every edge in :data:`EDGES`);
+    anything else keeps the two ``dispatch`` launches over the permuted
+    grids."""
+    return dtype in DTYPES and all(b in EDGES for b in block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,20 +130,46 @@ def bwd_launch(layout: str, rows: int, cols: int,
     SM at most (its ring takes most of the shared memory), as few as give
     each the same number of tiles when all cost the same (512 tiles on
     132 SMs: 128 CTAs)."""
-    bm, bk, bn = block
-    I, J, K = grid
-    if layout == "nt":     # dx (m, kd): blocks (bm, bk), contraction bn
-        row_edge, col_edge, depth, steps = bm, bk, bn, J
-        rs, cs, ts = J * K, 1, K
-    elif layout == "tn":   # dw (kd, n): blocks (bk, bn), contraction bm
-        row_edge, col_edge, depth, steps = bk, bn, bm, I
-        rs, cs, ts = 1, K, J * K
-    else:
-        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    row_edge, col_edge = _walk(layout, grid, block)[:2]
     if row_edge >= 128 and col_edge == 256:
         tile_m, tile_n = 128, 256
     else:
         tile_m, tile_n = 64, min(col_edge, 128)
+    return _tiled(layout, rows, cols, grid, block, tile_m, tile_n, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_launch_f32(layout: str, rows: int, cols: int,
+                   grid: Tuple[int, int, int],
+                   block: Tuple[int, int, int],
+                   sms: int = build.H100_SMS) -> BwdLaunch:
+    """The launch shape of the float32 kernel (``csrc/dispatch_bwd_f32.cu``)
+    for the ``layout`` product with a ``rows`` x ``cols`` output, as
+    :func:`bwd_launch`: tiles of min(128, edge) along each output edge, so
+    a tile never crosses an output block (256 threads of 8 x 8 outputs at
+    128 x 128); one CTA per SM at most (its accumulators and partials take
+    most of the registers), as few as give each the same number of tiles
+    when all cost the same."""
+    row_edge, col_edge = _walk(layout, grid, block)[:2]
+    return _tiled(layout, rows, cols, grid, block, min(128, row_edge),
+                  min(128, col_edge), sms)
+
+
+def _walk(layout: str, grid: Tuple[int, int, int],
+          block: Tuple[int, int, int]) -> Tuple[int, ...]:
+    """(row_edge, col_edge, depth, steps, rs, cs, ts) of the ``layout``
+    product over the forward's grid (see :class:`BwdLaunch`)."""
+    bm, bk, bn = block
+    I, J, K = grid
+    if layout == "nt":     # dx (m, kd): blocks (bm, bk), contraction bn
+        return bm, bk, bn, J, J * K, 1, K
+    if layout == "tn":     # dw (kd, n): blocks (bk, bn), contraction bm
+        return bk, bn, bm, I, 1, K, J * K
+    raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+
+
+def _tiled(layout, rows, cols, grid, block, tile_m, tile_n, sms):
+    row_edge, col_edge, depth, steps, rs, cs, ts = _walk(layout, grid, block)
     row_tiles, col_tiles = -(-rows // tile_m), -(-cols // tile_n)
     tiles = max(1, row_tiles * col_tiles)
     ctas = -(-tiles // -(-tiles // sms))
@@ -224,51 +266,65 @@ def block_matmul_tn_plain(x: torch.Tensor, g: torch.Tensor,
                        out_dtype or x.dtype)
 
 
-def _require_tma(name: str, t: torch.Tensor) -> None:
-    """Raise unless ``t`` is a CUDA bf16 matrix the kernel's TMA loads can
-    read in place: unit stride along rows, 16-byte aligned base and row
-    stride."""
-    if (not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 2
-            or t.stride(1) != 1 or (t.stride(0) * 2) % 16
+def _require_rows(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise unless ``t`` is a CUDA ``dtype`` matrix the kernel's 16-byte
+    loads (TMA for bf16, ``cp.async`` for float32) can read in place: unit
+    stride along rows, 16-byte aligned base and row stride."""
+    if (not t.is_cuda or t.dtype != dtype or t.dim() != 2
+            or t.stride(1) != 1
+            or (t.stride(0) * torch.finfo(dtype).bits // 8) % 16
             or t.data_ptr() % 16):
+        kind = "bf16" if dtype == torch.bfloat16 else "float32"
         raise ValueError(
-            f"{name}: expected a CUDA bf16 matrix with unit column stride "
+            f"{name}: expected a CUDA {kind} matrix with unit column stride "
             f"and 16-byte aligned base and rows, got {t.dtype} on "
             f"{t.device}, strides {tuple(t.stride())}, data at "
             f"{t.data_ptr():#x}")
 
 
 def _launch(layout, a, b, codes, block, out_dtype):
+    """One product on the kernel of ``b``'s type (``a`` must match it)."""
     global launches
     name = f"block_matmul_{layout}"
     build.refuse_grad(name, a, b)
     if any(e not in EDGES for e in block):
         raise ValueError(f"{name}: block {block} not supported by the "
                          f"kernel (every edge in {EDGES})")
-    _require_tma(f"{name} {'g' if layout == 'nt' else 'x'}", a)
-    _require_tma(f"{name} {'w' if layout == 'nt' else 'g'}", b)
+    f32 = b.dtype == torch.float32
+    kind = torch.float32 if f32 else torch.bfloat16
+    _require_rows(f"{name} {'g' if layout == 'nt' else 'x'}", a, kind)
+    _require_rows(f"{name} {'w' if layout == 'nt' else 'g'}", b, kind)
     build.require(f"{name} codes", codes, torch.int32)
     _check(name, *a.shape, *b.shape, codes, block, layout)
     dtype = out_dtype or a.dtype
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{name}: out_dtype {dtype} not bf16 or float32")
+    if dtype not in ((torch.float32,) if f32
+                     else (torch.bfloat16, torch.float32)):
+        raise ValueError(f"{name}: out_dtype {dtype} not "
+                         f"{'float32' if f32 else 'bf16 or float32'}")
     rows, cols = ((a.shape[0], b.shape[0]) if layout == "nt"
                   else (a.shape[1], b.shape[1]))
     out = torch.empty((rows, cols), dtype=dtype, device=a.device)
     if out.numel() == 0:
         return out
-    s = bwd_launch(layout, rows, cols, tuple(codes.shape), tuple(block),
-                   build.sm_count(a.device))
+    s = (bwd_launch_f32 if f32 else bwd_launch)(
+        layout, rows, cols, tuple(codes.shape), tuple(block),
+        build.sm_count(a.device))
     queue = torch.empty((1,), dtype=torch.int32, device=a.device)
-    fn = build.function("dispatch_bwd", "rt_dispatch_bwd", C_ARGS)
-    build.check(fn(LAYOUTS.index(layout),
-                   a.data_ptr(), a.shape[0], a.shape[1], a.stride(0),
-                   b.data_ptr(), b.shape[0], b.shape[1], b.stride(0),
-                   codes.data_ptr(), queue.data_ptr(), out.data_ptr(),
-                   int(dtype == torch.float32), rows, cols,
-                   s.tile_m, s.tile_n, s.row_tiles, s.col_tiles, s.ctas,
-                   s.group, s.row_edge, s.col_edge, s.depth, s.steps,
-                   s.rs, s.cs, s.ts, build.stream(a)), "dispatch_bwd")
+    operands = (LAYOUTS.index(layout),
+                a.data_ptr(), a.shape[0], a.shape[1], a.stride(0),
+                b.data_ptr(), b.shape[0], b.shape[1], b.stride(0),
+                codes.data_ptr(), queue.data_ptr(), out.data_ptr())
+    shape = (rows, cols, s.tile_m, s.tile_n, s.row_tiles, s.col_tiles,
+             s.ctas, s.group, s.row_edge, s.col_edge, s.depth, s.steps,
+             s.rs, s.cs, s.ts, build.stream(a))
+    if f32:
+        fn = build.function("dispatch_bwd_f32", "rt_dispatch_bwd_f32",
+                            C_ARGS_F32)
+        build.check(fn(*operands, *shape), "dispatch_bwd (float32)")
+    else:
+        fn = build.function("dispatch_bwd", "rt_dispatch_bwd", C_ARGS)
+        build.check(fn(*operands, int(dtype == torch.float32), *shape),
+                    "dispatch_bwd")
     launches += 1
     return out
 
@@ -278,10 +334,11 @@ def block_matmul_nt(g: torch.Tensor, w: torch.Tensor, codes: torch.Tensor,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """dx = g @ w.T masked by the forward's ``codes`` at ``block`` (see
     :func:`block_matmul_nt_plain`), ``(g.shape[0], w.shape[0])`` in
-    ``out_dtype`` (default ``g``'s).  On CUDA: the kernel, on bf16 ``g``
-    (m, n) and ``w`` (kd, n) read in place, every edge of ``block`` in
-    :data:`EDGES`; ``out_dtype`` float32 returns the float32 sums
-    unrounded.  Anything else raises."""
+    ``out_dtype`` (default ``g``'s).  On CUDA: the kernel of ``w``'s type,
+    on bf16 or float32 ``g`` (m, n) and ``w`` (kd, n) of that type read in
+    place, every edge of ``block`` in :data:`EDGES`; bf16 with
+    ``out_dtype`` float32 returns the float32 sums unrounded, float32
+    takes only float32.  Anything else raises."""
     if not w.is_cuda:
         return block_matmul_nt_plain(g, w, codes, block, out_dtype=out_dtype)
     return _launch("nt", g, w, codes, block, out_dtype)
@@ -293,7 +350,7 @@ def block_matmul_tn(x: torch.Tensor, g: torch.Tensor, codes: torch.Tensor,
     """dw = x.T @ g masked by the forward's ``codes`` at ``block`` (see
     :func:`block_matmul_tn_plain`), ``(x.shape[1], g.shape[1])`` in
     ``out_dtype`` (default ``x``'s); on CUDA as :func:`block_matmul_nt`,
-    with bf16 ``x`` (m, kd) and ``g`` (m, n) read in place."""
+    with ``x`` (m, kd) and ``g`` (m, n) of ``g``'s type read in place."""
     if not g.is_cuda:
         return block_matmul_tn_plain(x, g, codes, block, out_dtype=out_dtype)
     return _launch("tn", x, g, codes, block, out_dtype)

@@ -7,8 +7,10 @@ CUDA kernels are in ``csrc/flash_attention.cu``: one CTA per (b*h, block of
 query rows), K/V streamed through shared memory, running max and
 denominator in float32, GQA kv heads read in place.  The route follows the
 type, in the open (:data:`ROUTES`): bfloat16 goes to the tensor-core
-kernel (``mma.sync``, P rounded to bf16 for P V), float32 to the first
-version on the FP32 FMA units, which the float32 checks at 3e-4 need.
+kernel (``mma.sync``, P rounded to bf16 for P V), float32 to the kernel on
+the FP32 FMA units (register-tiled S and O, P in float32), which the
+float32 checks at 3e-4 and float32 configs need; its CTAs run in
+:func:`flash_launch_f32`'s order, longest first.
 
 :func:`flash_attention_plain` is the plain PyTorch version of the same
 function, including the reference kernel's edge semantics: causal queries
@@ -22,6 +24,9 @@ version itself stays differentiable, for the checks).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Tuple
 
 import torch
 
@@ -33,6 +38,37 @@ NEG_INF = -1e30
 ROUTES = {torch.bfloat16: "rt_flash_attention_bf16",
           torch.float32: "rt_flash_attention_f32"}
 HEAD_DIMS = (16, 32, 64, 128)
+F32_ROWS = 128          # query rows of a float32 CTA
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashLaunch:
+    """The float32 kernel's CTAs: ``ctas`` = ``query_blocks`` x
+    ``batch_heads``, each ``rows`` query rows of one (b, h)."""
+    batch_heads: int
+    seq_q: int
+    rows: int
+    query_blocks: int
+    ctas: int
+
+    def cta_rows(self, cta: int) -> Tuple[int, int, int]:
+        """(b * H + h, first row, end row) of CTA ``cta``: the last query
+        block of every (b, h) first, then the one before, so that the
+        longest causal rows run first (the kernel's order)."""
+        bh = cta % self.batch_heads
+        row0 = (self.query_blocks - 1 - cta // self.batch_heads) * self.rows
+        return bh, row0, min(row0 + self.rows, self.seq_q)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_launch_f32(batch_heads: int, seq_q: int) -> FlashLaunch:
+    """The launch shape of ``rt_flash_attention_f32`` for ``batch_heads``
+    = B * H query heads of ``seq_q`` rows: the wrapper passes its
+    ``query_blocks``, and the kernel orders its ``ctas`` CTAs as
+    :meth:`FlashLaunch.cta_rows` does."""
+    blocks = -(-seq_q // F32_ROWS)
+    return FlashLaunch(batch_heads, seq_q, F32_ROWS, blocks,
+                       blocks * batch_heads)
 
 
 def _check(q, k, v, bq, bk):
@@ -85,7 +121,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     of its type (bfloat16: tensor cores; float32: FMA units), D in
-    16/32/64/128, or raises.
+    16/32/64/128, with 16-byte aligned data (the kernels' 16-byte
+    ``cp.async`` rows), or raises.
     """
     build.refuse_grad("flash_attention", q, k, v)   # on both devices
     if not q.is_cuda:
@@ -100,16 +137,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require(f"flash_attention {name}", t, q.dtype)
-        if q.dtype == torch.bfloat16:      # 16-byte cp.async rows
-            build.require_aligned(f"flash_attention {name}", t)
+        build.require_aligned(f"flash_attention {name}", t)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # the float32 route takes its CTAs' query blocks (flash_launch_f32)
+    f32 = q.dtype == torch.float32
     fn = build.function("flash_attention", ROUTES[q.dtype],
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                        + [ctypes.c_float, ctypes.c_void_p])
+                        + [ctypes.c_float] + [ctypes.c_int] * f32
+                        + [ctypes.c_void_p])
+    blocks = (flash_launch_f32(b * h, sq).query_blocks,) if f32 else ()
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b, h, k.shape[1], sq, k.shape[2], d, bq, bk, int(causal),
-                   d ** -0.5, build.stream(q)), "flash_attention")
+                   d ** -0.5, *blocks, build.stream(q)), "flash_attention")
     launches += 1
     return out

@@ -1255,8 +1255,8 @@ def _grad_operands(m, k, n, block, dtype, device, seed=21):
 def test_dispatch_backward_matches_autograd_of_the_plain_version(
         cuda, dtype, tol, shape, block):
     """The Function's dx and dw (``dispatch_bwd``'s two products on bf16
-    grids with every edge in {64, 128, 256}, else two dispatch launches
-    over the permuted grids) against autograd through
+    and float32 grids with every edge in {64, 128, 256}, else two dispatch
+    launches over the permuted grids) against autograd through
     ``block_matmul_plain`` on the card; dx exactly 0 where the forward
     SKIPped every step."""
     from repro_torch.core import analyzer, dynasparse, profiler
@@ -1339,6 +1339,128 @@ def test_dispatch_bwd_matches_its_plain_versions(cuda, layout, shape, block):
     assert torch.all(got[skipped] == 0)
 
 
+def _two_launch(layout, a, b, codes, block):
+    """The float32 backward product as two dispatch launches over a
+    transposed operand and the permuted GEMM/SKIP grid (the route below
+    the kernels' edges)."""
+    bm, bk, bn = block
+    run = (codes != 0).to(torch.int32)
+    if layout == "nt":
+        return dispatch.block_matmul(
+            a, b.T, run.permute(0, 2, 1).contiguous(), (bm, bn, bk),
+            pad_rows=False)[:a.shape[0], :b.shape[0]]
+    return dispatch.block_matmul(
+        a.T, b, run.permute(2, 1, 0).contiguous(), (bk, bm, bn),
+        pad_rows=False)[:a.shape[1], :b.shape[1]]
+
+
+@pytest.mark.parametrize("layout", ["nt", "tn"])
+@pytest.mark.parametrize("skip", ["random", "half", "all"])
+@pytest.mark.parametrize("shape,block", [
+    ((512, 512, 768), (256, 256, 256)), ((300, 320, 400), (128, 64, 256)),
+    ((130, 192, 200), (64, 64, 128)), ((40, 64, 72), (64, 64, 64)),
+    ((256, 512, 260), (256, 128, 64)), ((2048, 2048, 10944),
+                                        (256, 256, 256))])
+def test_dispatch_bwd_f32_matches_its_plain_versions(cuda, layout, skip,
+                                                     shape, block):
+    """The float32 ``dispatch_bwd`` (``csrc/dispatch_bwd_f32.cu``) at block
+    edges 64, 128 and 256, ragged N, on random, half-SKIPped and all-SKIP
+    grids: within 3e-4 of the largest |want| of its plain version, equal
+    to the two-launch route bitwise, exact zeros where every step was
+    SKIPped; one launch."""
+    m, k, n = shape
+    bm, bk, bn = block
+    I, J, Kb = -(-m // bm), -(-n // bn), -(-k // bk)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + n + len(skip))
+    codes = torch.randint(1, 4, (I, J, Kb), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    p = {"random": 0.25, "half": 0.5, "all": 1.1}[skip]
+    codes[torch.rand((I, J, Kb), generator=gen, device=cuda) < p] = 0
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    B = K.dispatch_bwd
+    fn, plain, a, b = ((B.block_matmul_nt, B.block_matmul_nt_plain, g, w)
+                       if layout == "nt" else
+                       (B.block_matmul_tn, B.block_matmul_tn_plain, x, g))
+    K.reset_launch_counts()
+    got = fn(a, b, codes, block)
+    assert K.launch_counts()["dispatch_bwd"] == 1
+    want = plain(a, b, codes, block)
+    old = _two_launch(layout, a, b, codes, block)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 3e-4 * float(want.abs().max()), err
+    assert torch.equal(got, old)
+    run = codes != 0
+    if layout == "nt":
+        skipped = (run.sum(1) == 0).repeat_interleave(bm, 0)
+        skipped = skipped.repeat_interleave(bk, 1)[:m, :k]
+    else:
+        skipped = (run.sum(0) == 0).T.repeat_interleave(bk, 0)
+        skipped = skipped.repeat_interleave(bn, 1)[:k, :n]
+    assert torch.all(got[skipped] == 0)
+    if skip == "all":
+        assert torch.all(got == 0)
+
+
+def test_dispatch_bwd_f32_raises_on_what_it_does_not_take(cuda):
+    """Misaligned or non-contiguous float32 operands raise (the kernel's
+    16-byte cp.async rows); so do mixed types and a bf16 result."""
+    block = (64, 64, 64)
+    codes = torch.ones((2, 2, 1), dtype=torch.int32, device=cuda)
+    g = torch.randn((128, 128), device=cuda)
+    w = torch.randn((64, 128), device=cuda)
+    flat = torch.zeros(1 + 128 * 128, device=cuda)
+    odd = flat[1:].view(128, 128)                           # 4-byte offset
+    wide = torch.zeros((128, 130), device=cuda)[:, :128]    # 520-byte rows
+    B = K.dispatch_bwd
+    for a_, b_, match in ((odd, w, "16-byte aligned"),
+                          (wide, w, "16-byte aligned"),
+                          (g, torch.randn((128, 64), device=cuda).T,
+                           "unit column stride"),
+                          (g.bfloat16(), w, "expected a CUDA float32"),
+                          (g, w.bfloat16(), "expected a CUDA bf16")):
+        with pytest.raises(ValueError, match=match):
+            B.block_matmul_nt(a_, b_, codes, block)
+    with pytest.raises(ValueError, match="out_dtype"):
+        B.block_matmul_nt(g, w, codes, block, out_dtype=torch.bfloat16)
+
+
+def test_float32_below_the_kernels_edges_keeps_two_launches(cuda):
+    """BlockMatmulFn in float32: at (16, 64, 128) the two dispatch launches
+    over the permuted grids, at (64, 64, 128) one dispatch_bwd launch per
+    product; the gradients agree."""
+    from repro_torch.core import dynasparse
+
+    x = torch.randn((130, 192), device=cuda)
+    w = torch.randn((192, 200), device=cuda)
+    g = torch.randn((130, 200), device=cuda)
+    grads = {}
+    for block, want in (((16, 64, 128), (3, 0)), ((64, 64, 128), (1, 2))):
+        I, J, Kb = -(-130 // block[0]), -(-200 // block[2]), -(-192 // block[1])
+        codes = torch.ones((I, J, Kb), dtype=torch.int32, device=cuda)
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        K.reset_launch_counts()
+        dynasparse.BlockMatmulFn.apply(xs, ws, codes, block).backward(g)
+        torch.cuda.synchronize()
+        c = K.launch_counts()
+        assert (c["dispatch"], c["dispatch_bwd"]) == want
+        grads[block] = (xs.grad, ws.grad)
+    for a_, b_ in zip(*grads.values()):
+        err = float((a_ - b_).abs().max())
+        assert err <= 3e-4 * float(b_.abs().max()), err
+
+
+def test_flash_attention_f32_raises_on_misaligned_data(cuda):
+    flat = torch.zeros(1 + 2 * 16 * 64, device=cuda)
+    odd = flat[1:].view(1, 2, 16, 64)                       # 4-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.flash_attention.flash_attention(odd, odd, odd, bq=16, bk=16)
+
+
 def test_cuda_routes_without_backward_refuse_a_gradient(cuda):
     """float32 static gemm/spdmm, the row-CSR route, edge_softmax, flash
     and a direct dispatch launch raise under grad instead of returning a
@@ -1376,7 +1498,8 @@ def test_cuda_routes_without_backward_refuse_a_gradient(cuda):
 @pytest.mark.parametrize("dyn", [False, True])
 def test_train_step_on_the_card_matches_the_cpu(cuda, dyn):
     """Two float32 steps of the smoke llama (dynasparse FFN on: its
-    backward on the dispatch kernel) on the card and on the CPU."""
+    backward on the float32 dispatch_bwd kernel) on the card and on the
+    CPU."""
     import dataclasses
 
     from repro_torch.data.tokens import TokenPipeline
@@ -1403,11 +1526,13 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dyn):
             state, m = step(state, b)
         outs.append((float(m["loss"]), float(m["grad_norm"]),
                      [t.cpu() for t in tree_lib.flatten(state.params)[0]],
-                     K.launch_counts()["dispatch"]))
+                     (K.launch_counts()["dispatch"],
+                      K.launch_counts()["dispatch_bwd"])))
     (l0, g0, p0, _), (l1, g1, p1, launches) = outs
     assert abs(l0 - l1) <= 1e-4 * abs(l0) and abs(g0 - g1) <= 1e-3 * g0
-    # 2 layers x 3 FFN products: one forward and two backward launches
-    assert launches == (2 * 6 * 3 if dyn else 0)
+    # 2 steps x 2 layers x 3 FFN products: one forward dispatch launch and
+    # two backward dispatch_bwd launches (float32 at (256, 256, 256))
+    assert launches == ((2 * 6, 2 * 6 * 2) if dyn else (0, 0))
     for a, b in zip(p0, p1):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 

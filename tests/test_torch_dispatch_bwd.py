@@ -1,5 +1,5 @@
-"""The masked ``dispatch`` VJP of the bf16 route (``kernels/dispatch_bwd.py``)
-on the CPU.
+"""The masked ``dispatch`` VJP (``kernels/dispatch_bwd.py``, bf16 and
+float32 routes) on the CPU.
 
 * ``block_matmul_nt_plain`` (dx) and ``block_matmul_tn_plain`` (dw)
   against ``jax.value_and_grad`` of the reference's
@@ -8,9 +8,10 @@ on the CPU.
   every block whose steps were all SKIPped;
 * bitwise the previous route: ``dispatch.block_matmul_plain`` over the
   permuted GEMM/SKIP grids, cut and cast;
-* the launch shape (``bwd_launch``): tiles inside one output block, every
-  tile taken once in the kernel's order, CTAs with equal shares; the
-  walk (``tile_walk``) against a brute-force numpy walk of the code grid;
+* the launch shapes (``bwd_launch``, ``bwd_launch_f32``): tiles inside
+  one output block, every tile taken once in the kernel's order, whole
+  contraction blocks, CTAs with equal shares; the walk (``tile_walk``)
+  against a brute-force numpy walk of the code grid;
 * the route rule (``takes``) and ``BlockMatmulFn``'s choice of route;
 * the CUDA wrapper's refusals (checked before any launch, so they run
   here on tensors that only claim to be on the card).
@@ -226,20 +227,66 @@ def test_tiles_in_flight_share_operands():
     (torch.bfloat16, (32, 64, 64), False),
     (torch.bfloat16, (64, 16, 64), False),
     (torch.bfloat16, (128, 128, 32), False),
-    (torch.float32, (256, 256, 256), False),
+    (torch.float32, (256, 256, 256), True),
     (torch.float16, (256, 256, 256), False)])
 def test_route_by_dtype_and_block(dtype, block, want):
     assert dispatch_bwd.takes(dtype, block) is want
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16, torch.float64])
+def test_route_at_every_edge_triple(dtype):
+    """bf16 and float32 take the kernels exactly when every edge is in
+    EDGES; any other type never does."""
+    edges = (16, 32, 48, 64, 128, 256, 512)
+    for block in itertools.product(edges, repeat=3):
+        want = (dtype in (torch.bfloat16, torch.float32)
+                and all(e in (64, 128, 256) for e in block))
+        assert dispatch_bwd.takes(dtype, block) is want, block
+
+
+@pytest.mark.parametrize("layout,rows,cols,grid,block", GRIDS)
+def test_f32_tile_schedule_and_walk(layout, rows, cols, grid, block):
+    """The float32 kernel's launch shape: tiles of min(128, edge), each
+    inside one output block and taken once; whole contraction blocks (the
+    block edge, one step per block: no reduction block is split); its
+    walk lists exactly the active blocks, ascending, no SKIPped one."""
+    s = dispatch_bwd.bwd_launch_f32(layout, rows, cols, grid, block)
+    bm, bk, bn = block
+    I, J, K = grid
+    row_edge, col_edge = (bm, bk) if layout == "nt" else (bk, bn)
+    assert (s.tile_m, s.tile_n) == (min(128, row_edge), min(128, col_edge))
+    assert row_edge % s.tile_m == 0 and col_edge % s.tile_n == 0
+    assert (s.depth, s.steps) == ((bn, J) if layout == "nt" else (bm, I))
+    assert s.row_tiles * s.tile_m >= rows > (s.row_tiles - 1) * s.tile_m
+    assert s.col_tiles * s.tile_n >= cols > (s.col_tiles - 1) * s.tile_n
+    tiles = s.row_tiles * s.col_tiles
+    order = [s.tile_rc(t) for t in range(tiles)]
+    assert sorted(order) == list(itertools.product(range(s.row_tiles),
+                                                   range(s.col_tiles)))
+    per = -(-tiles // s.ctas)
+    assert s.ctas <= 132 and (s.ctas - 1) * per < tiles <= s.ctas * per
+    rng = np.random.default_rng(rows * cols)
+    codes = rng.integers(0, 4, size=grid).astype(np.int32)
+    codes[rng.random(grid) < 0.5] = 0
+    walks = dispatch_bwd.tile_walk(torch.from_numpy(codes), s)
+    for t, (tr, tc) in enumerate(order):
+        r, c = tr * s.tile_m // row_edge, tc * s.tile_n // col_edge
+        run = (codes[r, :, c] if layout == "nt" else codes[:, c, r]) != 0
+        assert walks[t] == [i for i in range(s.steps) if run[i]]
+        assert all(run[i] for i in walks[t])
+
+
 @pytest.mark.parametrize("dtype,block,route", [
     ("bfloat16", (64, 64, 128), "dispatch_bwd"),
     ("bfloat16", (32, 32, 32), "dispatch"),
-    ("float32", (64, 64, 128), "dispatch")])
+    ("float32", (64, 64, 128), "dispatch_bwd"),
+    ("float32", (32, 32, 32), "dispatch"),
+    ("float32", (16, 64, 128), "dispatch")])
 def test_block_matmul_fn_takes_the_route(monkeypatch, dtype, block, route):
-    """The Function's backward: dispatch_bwd's two products on bf16 grids
-    with every edge in EDGES (the forward's codes, g cast once), else two
-    dispatch launches over the permuted grids."""
+    """The Function's backward: dispatch_bwd's two products on bf16 and
+    float32 grids with every edge in EDGES (the forward's codes, g cast
+    once), else two dispatch launches over the permuted grids."""
     x, w, g = _operands(130, 192, 200, block, 5)
     tdt = getattr(torch, dtype)
     calls = []
@@ -331,3 +378,45 @@ def test_the_cuda_wrapper_refuses(case, match):
         kw = {"out_dtype": torch.float16}
     with pytest.raises(ValueError, match=match):
         dispatch_bwd.block_matmul_nt(a, b, c, block, **kw)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("bf16 x", "expected a CUDA float32 matrix"),
+    ("unaligned base", "16-byte aligned"),
+    ("odd row stride", "16-byte aligned"),
+    ("column stride", "unit column stride"),
+    ("block edge 16", "not supported by the kernel"),
+    ("codes int64", "block_matmul_tn codes"),
+    ("shape", "do not fit codes"),
+    ("out bf16", "out_dtype"),
+    ("grad", "no backward")])
+def test_the_cuda_wrapper_refuses_float32(case, match):
+    """The float32 route (``g``'s type): x must match it, rows must be
+    16-byte aligned (``cp.async``), the result float32."""
+    block = (64, 64, 64)
+    x = torch.zeros((128, 64), dtype=torch.float32)
+    g = torch.zeros((128, 196), dtype=torch.float32)
+    codes = torch.zeros((2, 4, 1), dtype=torch.int32)
+    kw = {}
+    a, b, c = _OnCard(x), _OnCard(g), _OnCard(codes)
+    if case == "bf16 x":
+        a = _OnCard(x.bfloat16())
+    elif case == "unaligned base":
+        b = _OnCard(g, ptr=260)
+    elif case == "odd row stride":
+        b = _OnCard(g, stride=(198, 1))
+    elif case == "column stride":
+        a = _OnCard(x, stride=(1, 128))
+    elif case == "block edge 16":
+        block = (64, 16, 64)
+    elif case == "codes int64":
+        c = _OnCard(codes.long())
+    elif case == "shape":
+        c = _OnCard(torch.zeros((1, 4, 1), dtype=torch.int32))
+    elif case == "out bf16":
+        kw = {"out_dtype": torch.bfloat16}
+    elif case == "grad":
+        b.requires_grad = True
+    ctx = torch.enable_grad() if case == "grad" else torch.no_grad()
+    with ctx, pytest.raises(ValueError, match=match):
+        dispatch_bwd.block_matmul_tn(a, b, c, block, **kw)

@@ -4,8 +4,8 @@
   and stub frames, over seeds, steps and shards;
 * ``dynasparse_matmul``'s gradient (``core/dynasparse.BlockMatmulFn``:
   one ``dispatch`` forward; backward ``dispatch_bwd``'s two products over
-  the forward's grid on bf16 with every edge in {64, 128, 256}, else two
-  ``dispatch`` launches over the permuted code grid) against
+  the forward's grid on bf16 and float32 with every edge in {64, 128,
+  256}, else two ``dispatch`` launches over the permuted code grid) against
   ``jax.grad`` of the reference's, with zero blocks planted
   in x and in w: float32 within 3e-4, bf16 within 5e-2 (relative to the
   largest gradient), and dx exactly 0 in every block the forward SKIPped,
@@ -137,10 +137,10 @@ def test_dynasparse_grad_is_the_reference_masked_vjp(
     np.testing.assert_array_equal(res.codes.numpy(), np.asarray(jcodes))
     assert "BlockMatmulFnBackward" in _grad_fns(res.out.grad_fn)
     (res.out.float() * torch.from_numpy(g)).sum().backward()
-    # one forward launch, then dx and dw: on bf16 grids with every edge in
-    # {64, 128, 256} dispatch_bwd's two products over the forward's codes,
-    # else two dispatch launches over the permuted grids, whose codes are
-    # GEMM wherever the forward ran a step
+    # one forward launch, then dx and dw: on bf16 and float32 grids with
+    # every edge in {64, 128, 256} dispatch_bwd's two products over the
+    # forward's codes, else two dispatch launches over the permuted grids,
+    # whose codes are GEMM wherever the forward ran a step
     m, k = x.shape
     n = w.shape[1]
     if dispatch_bwd.takes(tdt, block):
