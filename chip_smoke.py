@@ -99,16 +99,21 @@ card at the shapes its path gives it, then drives the port's paths:
   the two ``dispatch`` launches over the permuted grid that served
   float32 before, timed beside it) and timed at the four FFN products,
   on a grid with half of w1's blocks SKIPped and at deepseek's ragged
-  2048 x 10944 dense-first w1;
+  2048 x 10944 dense-first w1; the forward of the same products as
+  ``BlockMatmulFn`` runs it (bf16 on the walk's mma route; float32 on
+  ``dispatch.block_matmul_nn``, the float32 backward's kernel in its nn
+  layout, bitwise the walk, timed beside it and ``torch.matmul``);
   llama3.2-1b at full width trained 4 steps (batch 8 x 256, lr 3e-3,
   float32 AdamW state) with ``dynasparse_ffn`` through
   ``make_train_step`` + ``Trainer`` + ``TokenPipeline`` (48 ``dispatch``,
   96 ``dispatch_bwd`` and 144 ``tile_nnz`` a step) and dense;
   ``launch/train.py`` with a failure at step 2 restarting from its
   step-2 checkpoint, equal to the uninterrupted dense run; one warm and
-  one profiled float32 dynasparse step (the same launches a step), its
-  first loss and gradient norm within ``TOL`` of a dense float32 step on
-  the same weights and batch;
+  one profiled float32 dynasparse step (the same launches a step; the
+  profile shows 48 forward launches on the tiled kernel and none on the
+  walk), its first loss and gradient norm equal bitwise to the same step
+  with the forward on the walk and within ``TOL`` of a dense float32 step
+  on the same weights and batch;
 * the dry run (phase 12): the int8 error-feedback gradient all-reduce
   (``distributed.collectives``) over a one-rank NCCL group on a tree of
   llama3.2-1b's full-width gradient shapes, timed beside its bytes-moved
@@ -954,12 +959,13 @@ def main() -> int:
         lm_counts["score_f32"]["flash_attention"]
     kernels_line["dispatch_bwd"]["launches"] = train_counts["dispatch_bwd"]
     kernels_line[BWD_F32]["launches"] = train_counts[BWD_F32]
+    kernels_line[FWD_F32]["launches"] = train_counts[FWD_F32]
     kernels_line["edge_softmax"]["launches"] = gat_counts["edge_softmax"]
     kernels_line["tile_nnz_batched"]["launches"] = \
         serve_counts["tile_nnz_batched"]
     kernels_line[PADDED_TILE_NNZ]["launches"] = padded_counts["tile_nnz"]
     check(set(K.launch_counts()) | {LM_DISPATCH, PADDED_TILE_NNZ,
-                                    LM_FLASH_F32, BWD_F32}
+                                    LM_FLASH_F32, BWD_F32, FWD_F32}
           == set(kernels_line)
           and all(e["launches"] > 0 for e in kernels_line.values()),
           f"kernels line incomplete: {sorted(kernels_line)}")
@@ -2816,6 +2822,12 @@ SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_DENSITY = 4, 144, 0.1
 LM_DISPATCH = "dispatch (bf16, tensor cores)"
 LM_FLASH_F32 = "flash_attention (float32)"
 BWD_F32 = "dispatch_bwd (float32)"
+# the float32 training forward on the tiled kernel (dispatch.block_matmul_nn,
+# counted under dispatch): its launches are the float32 step window's
+FWD_F32 = "dispatch (float32, tiled forward)"
+# the two float32 forward kernels as the profiler names them
+NN_KERNEL = "dispatch_bwd_f32_kernel<2,"
+WALK_KERNEL = "dispatch_fma_kernel"
 
 
 def leaves(tree):
@@ -4138,13 +4150,17 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     planted in x and w, each backward product checked against its plain
     version and timed (``dispatch_bwd``, both types, also on a grid with
     half of w1's blocks SKIPped and at a ragged width; float32 also as
-    the two ``dispatch`` launches it replaced); (b) four training steps
+    the two ``dispatch`` launches it replaced), and each forward product
+    (bf16 on the walk, float32 on ``block_matmul_nn`` beside the walk it
+    replaced, also on the half-SKIPped grid and the ragged width); (b)
+    four training steps
     at full width with ``dynasparse_ffn`` (``make_train_step`` +
     ``Trainer`` + ``TokenPipeline``), launches per step counted, and the
     same four steps dense; (c) ``launch.train.main`` with a failure at
     step 2 and a restart from the step-2 checkpoint, held to the dense
     run; (d) one warm and one profiled float32 dynasparse step, held to
-    a dense float32 step.  Returns the launch counts of (b)'s and (d)'s
+    the same first step with the forward on the walk (bitwise) and to a
+    dense float32 step.  Returns the launch counts of (b)'s and (d)'s
     windows."""
     import contextlib
     import io
@@ -4340,16 +4356,77 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                 "dispatch_bwd_f32.cu" if f32 else "dispatch_bwd.cu"),
             "src/repro/core/dynasparse.py:239",
             lambda: fn(a, b, codes, blk), lambda: plain(a, b, codes, blk),
-            lambda: lib(a, b), bwd_work(torch, layout, a, b, codes, blk),
+            lambda: lib(a, b), tiled_work(torch, layout, a, b, codes, blk),
             lambda g_, w_: True, tol=TOL if f32 else DISPATCH_BF16_TOL,
             peak=PEAK_FP32 if f32 else PEAK_BF16,
             units="fma" if f32 else "wgmma", line=line,
             line_name=BWD_F32 if f32 else "dispatch_bwd", compare=compare,
             lib_call="torch.matmul (the operand transposed, a view)")
 
-    # each backward product as the Function makes it, timed
+    D = K.dispatch
+
+    def walk(xs, ws, codes):
+        """The forward on the walk (``dispatch.block_matmul``), cut to (m,
+        n): how BlockMatmulFn runs bf16, and ran float32 before
+        ``block_matmul_nn``."""
+        return D.block_matmul(xs, ws, codes, blk,
+                              pad_rows=False)[:xs.shape[0], :ws.shape[1]]
+
+    def fwd_entry(case, xs, ws, codes, line=False):
+        """Check and time one forward product as ``BlockMatmulFn`` runs
+        it.  bf16: the walk's mma route within ``DISPATCH_BF16_TOL`` of
+        the plain version.  float32: ``block_matmul_nn`` (the tiled kernel's
+        nn layout) bitwise the walk and within ``TOL`` of the largest
+        |want| of the plain version; the walk timed beside it."""
+        m, n = xs.shape[0], ws.shape[1]
+        plain = lambda: D.block_matmul_plain(  # noqa: E731
+            xs, ws, codes, blk, pad_rows=False)[:m, :n]
+        lib = lambda: torch.matmul(xs, ws)  # noqa: E731
+        if xs.dtype == torch.bfloat16:
+            return kernel_entry(
+                case, "src/repro_torch/kernels/csrc/dispatch.cu",
+                "src/repro/core/dynasparse.py:239",
+                lambda: walk(xs, ws, codes), plain, lib,
+                dispatch_work(torch, K, xs, ws, codes, blk),
+                lambda g_, w_: True, tol=DISPATCH_BF16_TOL, peak=PEAK_BF16,
+                line=False, units="mma", lib_call="torch.matmul")
+
+        def compare(got, want, tol):
+            err, ok = rel_to_max(got, want, tol)
+            same = bool(torch.equal(got, walk(xs, ws, codes)))
+            record("dispatch_nn_check", case=case, max_abs_err=err,
+                   max_abs_want=float(want.abs().max()), tol=tol,
+                   bitwise_walk=same,
+                   bitwise_plain=bool(torch.equal(got, want)))
+            return err, ok and same
+
+        entry = kernel_entry(
+            case, "src/repro_torch/kernels/csrc/dispatch_bwd_f32.cu",
+            "src/repro/core/dynasparse.py:239",
+            lambda: D.block_matmul_nn(xs, ws, codes, blk), plain, lib,
+            tiled_work(torch, "nn", xs, ws, codes, blk),
+            lambda g_, w_: True, tol=TOL, peak=PEAK_FP32, units="fma",
+            line=line, line_name=FWD_F32, compare=compare,
+            lib_call="torch.matmul")
+        b_ms, b_by = bound(*dispatch_work(torch, K, xs, ws, codes, blk))
+        walk_ms = cuda_ms(torch, lambda: walk(xs, ws, codes))
+        record("kernel", name=f"{case}, on the walk", route="fma",
+               source="src/repro_torch/kernels/csrc/dispatch.cu",
+               max_abs_err=entry["max_abs_err"], bitwise_tiled=True,
+               ms=walk_ms, plain_ms=entry["plain_ms"],
+               library_ms=entry["library_ms"], bound_ms=b_ms,
+               bound_by=b_by, tol=TOL, tiled_ms=entry["ms"],
+               walk_over_tiled=walk_ms / entry["ms"],
+               in_kernels_line=False)
+        return entry
+
+    # each forward and backward product as the Function makes it, timed
     for (label, prod), (xs, ws, gd, codes) in backward_cases.items():
         tag = "" if label == "bf16" else "float32, "
+        route = "bf16" if label == "bf16" else "float32, tiled"
+        fwd_entry(f"dispatch ({route} forward of {prod}: {tuple(xs.shape)} "
+                  f"@ {tuple(ws.shape)})", xs, ws, codes,
+                  line=(label, prod) == ("f32", "w1"))
         mask = skipped_rows(codes, *xs.shape)[0]
         bwd_entry(f"dispatch_bwd ({tag}dx of {prod}: {tuple(gd.shape)} @ "
                   f"{tuple(ws.shape)}.T)", "nt", gd, ws, codes,
@@ -4415,6 +4492,10 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                   zero=skipped_rows(codes, *xs.shape)[0])
         bwd_entry(f"dispatch_bwd ({tag}dw of w1, {int(gone.sum())} of "
                   f"{kb * jb} w blocks zero)", "tn", xs, gd, codes)
+        if label == "f32":
+            fwd_entry(f"dispatch (float32, tiled forward of w1, "
+                      f"{int(gone.sum())} of {kb * jb} w blocks zero)",
+                      xs, wh, codes)
         wr, gr = wr32.to(xs.dtype), gr32.to(xs.dtype)
         codes = planned(xs, wr)
         bwd_entry(f"dispatch_bwd ({tag}dx, ragged: {tuple(gr.shape)} @ "
@@ -4422,6 +4503,10 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
                   zero=skipped_rows(codes, *xs.shape)[0])
         bwd_entry(f"dispatch_bwd ({tag}dw, ragged: {tuple(xs.shape)}.T @ "
                   f"{tuple(gr.shape)})", "tn", xs, gr, codes)
+        if label == "f32":
+            fwd_entry(f"dispatch (float32, tiled forward, ragged: "
+                      f"{tuple(xs.shape)} @ {tuple(wr.shape)})", xs, wr,
+                      codes)
     del backward_cases, x, w1, h, w2, xs, gd, wh, wr, gr, wr32, gr32
     torch.cuda.empty_cache()
     a_s = time.perf_counter() - t_phase
@@ -4587,13 +4672,14 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
     # (dispatch_bwd's float32 route), held to a dense float32 step on the
     # same weights and batch
     t0 = time.perf_counter()
-    logs32 = {True: [], False: []}
+    logs32 = {True: [], False: [], "walk": []}
     torch.cuda.reset_peak_memory_stats()
     trainer = trainer_for(True, logs32[True], "float32")
     K.reset_launch_counts()
     trainer.run(1, log=lines.append)
     prof32 = profile_device(torch, lambda: trainer.run(1, log=lines.append),
-                            n=1, top=20, warm=False, windows=1)
+                            n=1, top=20, warm=False, windows=1,
+                            count=(NN_KERNEL, WALK_KERNEL))
     torch.cuda.synchronize()
     window32 = K.launch_counts()
     peak32 = torch.cuda.max_memory_allocated()
@@ -4603,8 +4689,31 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
           and window32["dispatch_bwd"] == 4 * per_layer
           and window32["tile_nnz"] == 6 * per_layer,
           f"float32 train window launches {window32}")
+    # the profiled step's forward: every launch on the tiled kernel, none
+    # on the walk
+    fwd32 = prof32["counted"]
+    check(not prof32["complete"] or (fwd32[NN_KERNEL][0] == per_layer
+                                     and fwd32[WALK_KERNEL][0] == 0),
+          f"float32 step forward launches {fwd32}")
     del trainer
     torch.cuda.empty_cache()
+    # the same first step with the forward on the walk, as before
+    # block_matmul_nn: the loss and the grad norm must not move a bit
+    tiled_fwd = D.block_matmul_nn
+    D.block_matmul_nn = lambda x_, y_, c_, b_: D.block_matmul(
+        x_, y_, c_, b_, pad_rows=False)[:x_.shape[0], :y_.shape[1]]
+    try:
+        walk32 = trainer_for(True, logs32["walk"], "float32")
+        walk32.run(1, log=lines.append)
+    finally:
+        D.block_matmul_nn = tiled_fwd
+    del walk32
+    torch.cuda.empty_cache()
+    same32 = {k: logs32[True][0]["metrics"][k] == logs32["walk"][0][
+        "metrics"][k] for k in ("loss", "grad_norm")}
+    check(all(same32.values()),
+          f"float32 first step, tiled vs walk forward: "
+          f"{logs32[True][0]['metrics']} vs {logs32['walk'][0]['metrics']}")
     dense32 = trainer_for(False, logs32[False], "float32")
     dense32.run(1, log=lines.append)
     del dense32
@@ -4619,6 +4728,10 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
            batch=TRAIN_BATCH, seq=TRAIN_SEQ,
            metrics=[s["metrics"] for s in logs32[True]],
            dense_metrics=[s["metrics"] for s in logs32[False]],
+           walk_metrics=[s["metrics"] for s in logs32["walk"]],
+           first_step_equals_walk=same32,
+           forward_launches_ms={"tiled": fwd32.get(NN_KERNEL),
+                                "walk": fwd32.get(WALK_KERNEL)},
            first_step_dynasparse_vs_dense=first32, first_step_rel=rel32,
            tol=TOL, step_launches=logs32[True][0]["total"],
            window_launches=window32, step_wall_s=walls32,
@@ -4628,7 +4741,8 @@ def train_phase(torch, np, K, dev, card, kernel_entry) -> dict:
            seconds=time.perf_counter() - t_phase, card=card)
     return {"dispatch_bwd": sum(s["total"]["dispatch_bwd"]
                                 for s in logs[True]),
-            BWD_F32: window32["dispatch_bwd"]}
+            BWD_F32: window32["dispatch_bwd"],
+            FWD_F32: window32["dispatch"]}
 
 
 # phase 12: the dry run.  (a) the int8 error-feedback all-reduce over a
@@ -4886,14 +5000,16 @@ WINDOWS = 4           # profiler windows taken at most, until one is whole
 
 
 def profile_device(torch, fn, n: int = 3, top: int = 10, warm: bool = True,
-                   windows: int = WINDOWS) -> dict:
+                   windows: int = WINDOWS, count: tuple = ()) -> dict:
     """Device busy time and the top device ops of ``fn``, from
     ``torch.profiler`` over ``n`` calls after a warm-up call (none when
     ``warm`` is False, for a call that must run a set number of times, as
     a training step; then ``windows=1``: a window is not taken again) (the
     profiler's own overhead is in ``wall_ms_profiled``); the copy kernels
     (a name holding "copy") are summed apart as ``copy_launches`` and
-    ``copy_ms``.
+    ``copy_ms``, and so, under ``counted``, are the device ops whose name
+    holds each string of ``count`` ([launches, ms] per call, of all
+    events, not only the top ones).
 
     On the H100 the profiler sometimes drops the first device events of
     a window (a kernel then counts 0.4 or 0.8 launches a call), and no
@@ -4939,7 +5055,8 @@ def profile_device(torch, fn, n: int = 3, top: int = 10, warm: bool = True,
     if not complete:
         return {"wall_ms_profiled": wall_ms, "device_busy_ms": "not measured",
                 "idle_share": "not measured", "windows": window,
-                "complete": False, "top_device_ops": []}
+                "complete": False, "top_device_ops": [],
+                "counted": {c: "not measured" for c in count}}
     busy = sum(dev_ms(e) for e in events)
     ops = sorted(events, key=dev_ms, reverse=True)[:top]
     copies = [e for e in events if "copy" in e.key.lower()]
@@ -4948,6 +5065,9 @@ def profile_device(torch, fn, n: int = 3, top: int = 10, warm: bool = True,
             "complete": True,
             "copy_launches": sum(e.count for e in copies) / n,
             "copy_ms": sum(dev_ms(e) for e in copies),
+            "counted": {c: [sum(e.count for e in events if c in e.key) / n,
+                            sum(dev_ms(e) for e in events if c in e.key)]
+                        for c in count},
             "top_device_ops": [[e.key[:80], dev_ms(e), e.count / n]
                                for e in ops]}
 
@@ -4993,12 +5113,14 @@ def dispatch_work(torch, K, x, y, codes, block) -> tuple:
     return float(flops), float(nbytes)
 
 
-def bwd_work(torch, layout, a, b, codes, block) -> tuple:
-    """(flops, bytes) ``dispatch_bwd`` needs on these inputs: each active
-    step's block product over the rows, columns and depth that lie inside
-    the operands (a tile no step reaches is written as zeros), every
-    operand block that one active step reads, read once, the code grid
-    read and the result (the operands' type) written once."""
+def tiled_work(torch, layout, a, b, codes, block) -> tuple:
+    """(flops, bytes) the tiled kernels need on these inputs
+    (``dispatch_bwd``'s ``nt`` and ``tn`` products, the float32 forward's
+    ``nn``): each active step's block product over the rows, columns and
+    depth that lie inside the operands (a tile no step reaches is written
+    as zeros), every operand block that one active step reads, read once,
+    the code grid read and the result (the operands' type) written
+    once."""
     bm, bk, bn = block
     I, J, Kb = codes.shape
     run = (codes != 0).double()                             # (I, J, Kb)
@@ -5009,19 +5131,18 @@ def bwd_work(torch, layout, a, b, codes, block) -> tuple:
 
     if layout == "nt":      # g (m, n), w (kd, n): dx (m, kd)
         m, n, kd = a.shape[0], a.shape[1], b.shape[0]
-    else:                   # x (m, kd), g (m, n): dw (kd, n)
+    else:                   # x (m, kd) with g (m, n) or y (kd, n)
         m, kd, n = a.shape[0], a.shape[1], b.shape[1]
     r, c, k = extent(m, bm, I), extent(n, bn, J), extent(kd, bk, Kb)
     flops = 2.0 * torch.einsum("ijk,i,j,k->", run, r, c, k)
-    any_ij = (run.sum(2) > 0).double()                      # g's blocks
-    g_bytes = torch.einsum("ij,i,j->", any_ij, r, c)
-    if layout == "nt":      # w's (k, j) blocks
-        other = torch.einsum("jk,k,j->", (run.sum(0) > 0).double(), k, c)
-    else:                   # x's (i, k) blocks
-        other = torch.einsum("ik,i,k->", (run.sum(1) > 0).double(), r, k)
+    x_blocks = torch.einsum("ik,i,k->", (run.sum(1) > 0).double(), r, k)
+    w_blocks = torch.einsum("jk,k,j->", (run.sum(0) > 0).double(), k, c)
+    g_blocks = torch.einsum("ij,i,j->", (run.sum(2) > 0).double(), r, c)
     size = a.element_size()     # operands and result: one type
-    nbytes = (size * (g_bytes + other) + 4.0 * codes.numel()
-              + size * kd * (m if layout == "nt" else n))
+    read, written = {"nt": (g_blocks + w_blocks, m * kd),
+                     "tn": (g_blocks + x_blocks, kd * n),
+                     "nn": (x_blocks + w_blocks, m * n)}[layout]
+    nbytes = size * (read + written) + 4.0 * codes.numel()
     return float(flops), float(nbytes)
 
 if __name__ == "__main__":

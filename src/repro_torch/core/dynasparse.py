@@ -33,12 +33,14 @@ keep the reference's meaning: the fused whole-model executor plans from
 propagated writeback profiles and shares one ELL view across kernels.
 
 Gradients: where grad mode is on and x or y requires a gradient, the
-``dispatch`` route runs inside :class:`BlockMatmulFn`, whose backward is
-two ``dispatch_bwd`` launches on bf16 grids (the operands and the code
-grid read in place) and otherwise two more ``dispatch`` launches on
-transposed operands with the code grid permuted: the reference's masked
-VJP (its ``lax.switch`` SKIP branch returns ``acc``, so ``jax.grad``
-gives no gradient through a SKIPped block step).  Profiling, planning and the writeback counts read detached
+``dispatch`` route runs inside :class:`BlockMatmulFn` (a float32 forward
+at the kernels' block edges on ``dispatch.block_matmul_nn``), whose
+backward is two ``dispatch_bwd`` launches on bf16 and float32 grids at
+those edges (the operands and the code grid read in place) and otherwise
+two more ``dispatch`` launches on transposed operands with the code grid
+permuted: the reference's masked VJP (its ``lax.switch`` SKIP branch
+returns ``acc``, so ``jax.grad`` gives no gradient through a SKIPped
+block step).  Profiling, planning and the writeback counts read detached
 tensors.  The other CUDA routes (float32 static ``gemm``/``spdmm``, row
 CSR) have no backward and raise under grad.
 
@@ -106,13 +108,23 @@ class BlockMatmulFn(torch.autograd.Function):
     dense ``g @ y.T`` is not.  ``g`` is cast once to the operands' type
     (bf16 cotangents of a bf16 result are exact).
 
-    bf16 or float32 operands at a block whose edges are all in
-    ``dispatch_bwd.EDGES`` take ``dispatch_bwd``'s two launches (the
+    The forward, by route (each counted under ``dispatch``): float32
+    operands at a block whose edges are all in ``dispatch_bwd.EDGES``
+    (the LM's (256, 256, 256)) take ``dispatch.block_matmul_nn``, the
+    float32 tiled kernel of ``csrc/dispatch_bwd_f32.cu`` in its forward
+    layout, bit for bit the walk's result; bf16 takes the walk's
+    tensor-core route and float32 at smaller edges its FMA route
+    (``dispatch.block_matmul``).  The GNN path never comes here (no
+    gradient): its float32 Aggregates keep the walk that skips A's empty
+    tiles.
+
+    The backward: bf16 or float32 operands at a block whose edges are all
+    in ``dispatch_bwd.EDGES`` take ``dispatch_bwd``'s two launches (the
     kernel of their type), which read x, y, g and the forward's codes in
     place (``block_matmul_nt`` for dx, ``block_matmul_tn`` for dy, each
-    rounded once to the operand's type).  Anything else takes two more ``dispatch`` launches on
-    transposed operands over the code grid permuted, with GEMM wherever
-    the forward ran a step:
+    rounded once to the operand's type).  Anything else takes two more
+    ``dispatch`` launches on transposed operands over the code grid
+    permuted, with GEMM wherever the forward ran a step:
 
     * ``dx = block_matmul(g, y.T, run.permute(0, 2, 1), (bm, bn, bk))``
     * ``dy = block_matmul(x.T, g, run.permute(2, 1, 0), (bk, bm, bn))``
@@ -124,6 +136,9 @@ class BlockMatmulFn(torch.autograd.Function):
         m, n = x.shape[0], y.shape[1]
         ctx.save_for_backward(x, y, codes)
         ctx.block = block
+        if (x.dtype == y.dtype == torch.float32
+                and _bwd.takes(torch.float32, block)):
+            return _dispatch.block_matmul_nn(x, y, codes, block)
         return _dispatch.block_matmul(x, y, codes, block,
                                       pad_rows=False)[:m, :n]
 

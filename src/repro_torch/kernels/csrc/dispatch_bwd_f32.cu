@@ -1,20 +1,32 @@
-// The masked dispatch VJP on float32 grids (kernels/dispatch_bwd.py): dx =
+// The block walk on float32 grids, tiled for the FP32 FMA units: the
+// forward x @ y of a float32 training step (kernels/dispatch.py
+// block_matmul_nn) and its masked VJP (kernels/dispatch_bwd.py): dx =
 // g @ w.T and dw = x.T @ g, each masked per block step by the forward's
-// code grid, on the FP32 FMA units.
+// code grid.  One body, three layouts of the operands.
 //
-// Replaces the two launches of the forward kernel's float32 route
-// (dispatch.cu, dispatch_fma_kernel) that served float32 backwards at
-// every block: each ran over a transposed, contiguous copy of w or x
-// (16-64 MB at llama3.2-1b's FFN shapes) and a permuted copy of the code
-// grid, with 16 x 16 output tiles per warp, so each operand element that
-// reached a warp's registers fed 16 FMAs.  The function is the
-// reference's gradient of the block walk of src/repro/core/dynasparse.py:
-// 239 under jax.grad (its SKIP branch returns acc):
+// The functions are the reference's block walk of
+// src/repro/core/dynasparse.py:239-258 (a lax.switch per (i, j, k) step)
+// and its gradient under jax.grad (its SKIP branch returns acc):
 //
+//   nn (y, m x n):    y[i, j] = sum over k with codes[i, j, k] != SKIP of
+//                     x[i, k] @ y[k, j]         (blocks bm x bn, depth bk)
 //   nt (dx, m x kd):  dx[i, k] = sum over j with codes[i, j, k] != SKIP of
 //                     g[i, j] @ w[k, j].T       (blocks bm x bk, depth bn)
 //   tn (dw, kd x n):  dw[k, j] = sum over i with codes[i, j, k] != SKIP of
 //                     x[i, k].T @ g[i, j]       (blocks bk x bn, depth bm)
+//
+// Which route serves which float32 product (core/dynasparse.py
+// BlockMatmulFn): at a block whose edges are all 64, 128 or 256 (the LM's
+// (256, 256, 256)) this kernel takes the training forward (nn) and both
+// backward products; elsewhere the forward and the backward's two
+// products (over transposed operands and permuted grids) run on
+// dispatch.cu's float32 route, the walk of 16 x 16 tiles per warp that
+// skips empty x tiles, as the GNN path's Aggregates still do (no gradient,
+// sparse A at 5 % occupancy).  At a dense 2048-row activation that walk
+// feeds each operand value a lane loads to a handful of FMAs: on an H100
+// (chip_smoke.py phase 11) 3.8-4.1 ms a forward product, 3.8-4.3 ms a
+// backward product as two launches, each over a transposed copy of w or
+// x and a permuted copy of the grid; this kernel takes 1.7-2.0 ms.
 //
 // What bounds it: operations.  llama3.2-1b's FFN products at 2048 tokens
 // are 68.7 GFLOP each, 1.03 ms at the H100's 67 TFLOP/s in FP32, against
@@ -25,12 +37,13 @@
 //     tiles): every operand value a thread loads from shared memory feeds
 //     8 FMAs, every 16-byte load 32;
 //   - operands read in place by 16-byte cp.async into a 4-stage ring of
-//     32-deep stages, one barrier per stage.  dx's operands g and w are
-//     both contraction-contiguous: a stage keeps their rows as they are
-//     (rows padded to 36 floats), and a thread reads 4 contraction steps
-//     of one row with one 16-byte load, its rows and columns 16 apart so
-//     that the 16 column loads of a half-warp hit 32 distinct banks.
-//     dw's x and g are stored contraction-major: a stage keeps each
+//     32-deep stages, one barrier per stage.  An operand that is
+//     contraction-contiguous (nt's g and w, nn's x) is staged with its
+//     rows as they are (rows padded to 36 floats), and a thread reads 4
+//     contraction steps of one row with one 16-byte load, its rows (and,
+//     in nt, its columns) 16 apart so that the 16 column loads of a
+//     half-warp hit 32 distinct banks.  An operand stored
+//     contraction-major (tn's x and g, nn's y) is staged with each
 //     contraction row as it is, and a thread reads 4 neighbouring rows or
 //     columns of one contraction step with one 16-byte load.  No
 //     transposed copy, no permuted grid; what lies past the operands
@@ -45,25 +58,30 @@
 //     and columns in L2); a CTA whose tiles SKIP goes on to more of them.
 // Not the tensor cores: TF32 (or 3xTF32) would change the rounding.
 //
-// Rounding: the two-launch route's, bit for bit.  For each output and
-// each active contraction block in ascending order, a fresh float32
-// partial runs one fmaf chain over the block's contraction steps in
-// ascending order, then acc += partial.  Zero-filled steps add exact
-// zeros (fma(0, 0, p) == p), so neither the tile shape nor the ring
-// changes an output's bits.
+// Rounding: dispatch.cu's float32 walk's, bit for bit (for the backward,
+// its two launches over the permuted grids).  For each output and each
+// active contraction block in ascending order, a fresh float32 partial
+// runs one fmaf chain over the block's contraction steps in ascending
+// order, then acc += partial.  Every non-SKIP code (GEMM, SPDMM, SPMM)
+// computes the same value on finite operands, since the walk skips only
+// zero tiles, so this kernel runs every active block dense.  Zero-filled
+// and zero-tile steps add exact zeros (fma(0, y, p) == p up to the sign
+// of a zero partial, which acc += partial erases: acc starts at +0), so
+// neither the tile shape nor the ring changes an output's bits.
 #include "fma.cuh"
 
 namespace {
 
-constexpr int NT = 0, TN = 1;   // layouts, as dispatch_bwd.LAYOUTS
+constexpr int NT = 0, TN = 1, NN = 2;   // dispatch_bwd.F32_LAYOUTS
 constexpr int KS = 32;          // contraction steps of a stage
 constexpr int STAGES = 4;
 constexpr int THREADS = 256;
-constexpr int RPAD = KS + 4;    // nt: floats of a stage row (16-byte pad)
+constexpr int RPAD = KS + 4;    // floats of a stage's operand row (16-byte
+                                // pad), contraction-contiguous operands
 
 struct Args {
-  const float* a;           // nt: g (m, n); tn: x (m, kd)
-  const float* b;           // nt: w (kd, n); tn: g (m, n)
+  const float* a;           // nt: g (m, n); tn: x (m, kd); nn: x (m, kd)
+  const float* b;           // nt: w (kd, n); tn: g (m, n); nn: y (kd, n)
   long a_rows, a_cols, lda, b_rows, b_cols, ldb;
   const int* codes;
   int* next_tile;           // the tile queue's head, zero at launch
@@ -81,7 +99,7 @@ static_assert(64 * KS / 4 % THREADS == 0, "stage copies");
 
 template <int LAYOUT, int BM, int BN>
 struct Ring {
-  static constexpr int A = LAYOUT == NT ? BM * RPAD : KS * BM;   // floats
+  static constexpr int A = LAYOUT == TN ? KS * BM : BM * RPAD;   // floats
   static constexpr int B = LAYOUT == NT ? BN * RPAD : KS * BN;
   static constexpr int STAGE = A + B;
   static constexpr int BYTES = STAGES * STAGE * 4;
@@ -122,8 +140,9 @@ dispatch_bwd_f32_kernel(const Args p) {
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int tiles = p.row_tiles * p.col_tiles;
-  // contraction extent: g's columns (nt) or the operands' rows (tn)
-  const long ext = LAYOUT == NT ? p.a_cols : p.a_rows;
+  // contraction extent: the first operand's columns (nt: g's; nn: x's)
+  // or the operands' rows (tn)
+  const long ext = LAYOUT == TN ? p.a_rows : p.a_cols;
   auto n_slices = [&](int t) -> int {
     const long left = ext - (long)t * p.depth;
     if (left <= 0) return 0;
@@ -131,7 +150,7 @@ dispatch_bwd_f32_kernel(const Args p) {
   };
   // the thread's output rows and columns inside the tile
   auto row_of = [&](int i) -> int {
-    return LAYOUT == NT ? ty + 16 * i : (i / 4) * 64 + ty * 4 + i % 4;
+    return LAYOUT == TN ? (i / 4) * 64 + ty * 4 + i % 4 : ty + 16 * i;
   };
   auto col_of = [&](int j) -> int {
     return LAYOUT == NT ? tx + 16 * j : (j / 4) * 64 + tx * 4 + j % 4;
@@ -158,8 +177,9 @@ dispatch_bwd_f32_kernel(const Args p) {
       float* as = smem + slot * R::STAGE;
       float* bs = as + R::A;
       const long k0 = (long)t * p.depth + (long)s * KS;
-      if constexpr (LAYOUT == NT) {
-        // g rows row0.., w rows col0.., contraction columns k0..k0 + KS
+      if constexpr (LAYOUT != TN) {
+        // operand rows as they are (nt: g rows row0..; nn: x rows row0..),
+        // contraction columns k0..k0 + KS
 #pragma unroll
         for (int n = 0; n < BM * KS / 4 / THREADS; ++n) {
           const int q = tid + n * THREADS;
@@ -167,6 +187,18 @@ dispatch_bwd_f32_kernel(const Args p) {
           cp_chunk(as + r * RPAD + c, p.a, row0 + r, k0 + c, p.a_rows,
                    p.a_cols, p.lda);
         }
+      } else {
+        // contraction rows k0.. of x (columns row0..)
+#pragma unroll
+        for (int n = 0; n < KS * BM / 4 / THREADS; ++n) {
+          const int q = tid + n * THREADS;
+          const int r = q / (BM / 4), c = q % (BM / 4) * 4;
+          cp_chunk(as + r * BM + c, p.a, k0 + r, row0 + c, p.a_rows,
+                   p.a_cols, p.lda);
+        }
+      }
+      if constexpr (LAYOUT == NT) {
+        // w rows col0.., contraction columns k0..k0 + KS
 #pragma unroll
         for (int n = 0; n < BN * KS / 4 / THREADS; ++n) {
           const int q = tid + n * THREADS;
@@ -175,14 +207,7 @@ dispatch_bwd_f32_kernel(const Args p) {
                    p.b_cols, p.ldb);
         }
       } else {
-        // x rows k0.. (columns row0..), g rows k0.. (columns col0..)
-#pragma unroll
-        for (int n = 0; n < KS * BM / 4 / THREADS; ++n) {
-          const int q = tid + n * THREADS;
-          const int r = q / (BM / 4), c = q % (BM / 4) * 4;
-          cp_chunk(as + r * BM + c, p.a, k0 + r, row0 + c, p.a_rows,
-                   p.a_cols, p.lda);
-        }
+        // contraction rows k0.. (tn: of g; nn: of y), columns col0..
 #pragma unroll
         for (int n = 0; n < KS * BN / 4 / THREADS; ++n) {
           const int q = tid + n * THREADS;
@@ -252,6 +277,31 @@ dispatch_bwd_f32_kernel(const Args p) {
             }
           }
         }
+      } else if constexpr (LAYOUT == NN) {
+#pragma unroll
+        for (int k4 = 0; k4 < KS / 4; ++k4) {
+          float4 a4[TM];
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            a4[i] = *reinterpret_cast<const float4*>(
+                as + row_of(i) * RPAD + k4 * 4);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float a[TM], b[TNN];
+#pragma unroll
+            for (int i = 0; i < TM; ++i) a[i] = rt::lane_of(a4[i], kk);
+#pragma unroll
+            for (int j4 = 0; j4 < TNN / 4; ++j4) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  bs + (k4 * 4 + kk) * BN + j4 * 64 + tx * 4);
+              b[4 * j4] = v.x;
+              b[4 * j4 + 1] = v.y;
+              b[4 * j4 + 2] = v.z;
+              b[4 * j4 + 3] = v.w;
+            }
+            rt::fma_step(part, a, b);
+          }
+        }
       } else {
 #pragma unroll
         for (int k = 0; k < KS; ++k) {
@@ -297,7 +347,7 @@ dispatch_bwd_f32_kernel(const Args p) {
       const long r = row0 + row_of(i);
       if (r >= p.rows) continue;
       float* o = p.out + r * p.cols;
-      if constexpr (LAYOUT == TN) {
+      if constexpr (LAYOUT != NT) {
         if (p.cols % 4 == 0) {
 #pragma unroll
           for (int j4 = 0; j4 < TNN / 4; ++j4) {
@@ -345,7 +395,9 @@ int launch_tile(int tile_m, int tile_n, const Args& p, int ctas,
 }  // namespace
 
 // layout 0 (nt): a = g (m, n), b = w (kd, n), out = dx (m, kd);
-// layout 1 (tn): a = x (m, kd), b = g (m, n), out = dw (kd, n).
+// layout 1 (tn): a = x (m, kd), b = g (m, n), out = dw (kd, n);
+// layout 2 (nn, the forward): a = x (m, kd), b = y (kd, n), out = x @ y
+// (m, n).
 // a and b float32, row-major with row strides lda, ldb (multiples of 4
 // elements) and 16-byte aligned bases; codes the forward's (I, J, K) int32
 // grid; out (rows, cols) contiguous float32, every element written;
@@ -364,9 +416,9 @@ extern "C" int rt_dispatch_bwd_f32(int layout, const float* a, long a_rows,
                                    int row_edge, int col_edge, int depth,
                                    int steps, long rs, long cs, long ts,
                                    void* stream) {
-  if ((layout != NT && layout != TN) || tile_m <= 0 || tile_n <= 0 ||
-      row_edge % tile_m || col_edge % tile_n || depth <= 0 || depth % KS ||
-      steps < 0 || (long)row_tiles * tile_m < rows ||
+  if ((layout != NT && layout != TN && layout != NN) || tile_m <= 0 ||
+      tile_n <= 0 || row_edge % tile_m || col_edge % tile_n || depth <= 0 ||
+      depth % KS || steps < 0 || (long)row_tiles * tile_m < rows ||
       (long)col_tiles * tile_n < cols || ctas <= 0 || group <= 0 ||
       (long)row_tiles * col_tiles > 0x7fffffffL || lda % 4 || ldb % 4 ||
       lda < a_cols || ldb < b_cols || ((uintptr_t)a & 15) ||
@@ -385,6 +437,7 @@ extern "C" int rt_dispatch_bwd_f32(int layout, const float* a, long a_rows,
                col_edge,  depth,     steps,     rs,       cs,    ts};
   const cudaError_t err = cudaMemsetAsync(next_tile, 0, sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
-  return layout == NT ? launch_tile<NT>(tile_m, tile_n, p, ctas, s)
-                      : launch_tile<TN>(tile_m, tile_n, p, ctas, s);
+  return layout == NT   ? launch_tile<NT>(tile_m, tile_n, p, ctas, s)
+         : layout == TN ? launch_tile<TN>(tile_m, tile_n, p, ctas, s)
+                        : launch_tile<NN>(tile_m, tile_n, p, ctas, s);
 }

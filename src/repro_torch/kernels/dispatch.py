@@ -17,6 +17,13 @@ float32.  Two routes, by the operands' type:
   and a split of the k-blocks chosen on the host from the rows that are
   really there (:func:`mma_launch`), partials added in a fixed order.
 
+A float32 training forward (``core/dynasparse.BlockMatmulFn``) at a
+block whose edges are all in ``dispatch_bwd.EDGES`` takes a third route,
+:func:`block_matmul_nn`: the float32 backward's tiled kernel
+(``csrc/dispatch_bwd_f32.cu``, 8 x 8 FMA microtiles fed by
+``cp.async``) in its ``nn`` layout, bit for bit the FMA route's result,
+counted here.
+
 :func:`block_matmul_plain` is the plain PyTorch version with the
 reference's per-step accumulation (``acc + step``).
 """
@@ -31,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import dispatch_bwd as _bwd
 from repro_torch.kernels.profile import tile_nnz
 
 launches = 0
@@ -271,6 +279,33 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
     if y.dtype == torch.bfloat16:
         return _block_matmul_mma(x, y, codes, block, out, skip, pad_rows)
     return _block_matmul_fma(x, y, codes, block, out, skip, pad_rows)
+
+
+def block_matmul_nn(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
+                    block: Tuple[int, int, int]) -> torch.Tensor:
+    """The forward ``x @ y`` of a float32 training step, dispatched by the
+    (I, J, K) code grid at ``block``: x's m rows and y's n columns, ``(m,
+    n)`` float32, equal bit for bit to ``block_matmul(x, y, codes, block,
+    pad_rows=False)[:m, :n]`` (a fresh partial per non-SKIP k-block, one
+    ``fmaf`` chain, then ``acc += partial``; SPDMM and SPMM blocks run
+    dense, which adds only exact zeros).
+
+    On CUDA: one launch of ``csrc/dispatch_bwd_f32.cu`` in its ``nn``
+    layout (tiles and walk: ``dispatch_bwd.bwd_launch_f32("nn", ...)``),
+    counted under ``dispatch``; float32 ``x`` (m, kd) and ``y`` (kd, n),
+    both on the card, read in place (unit column stride, 16-byte aligned
+    base and rows), int32 codes, every edge of ``block`` in
+    ``dispatch_bwd.EDGES``, no operand requiring a gradient under grad
+    mode.  Anything else raises; nothing falls back to the walk.  On the
+    CPU: :func:`block_matmul_plain`."""
+    global launches
+    if not y.is_cuda:
+        return block_matmul_plain(x, y, codes, block,
+                                  pad_rows=False)[:x.shape[0], :y.shape[1]]
+    out = _bwd.launch_product("nn", x, y, codes, block)
+    if out.numel():
+        launches += 1
+    return out
 
 
 def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows):

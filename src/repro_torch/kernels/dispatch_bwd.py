@@ -29,11 +29,14 @@ follows the operands' type:
   its tiles, 128 x 128 at most).  Its sums round as the two ``dispatch``
   launches over the permuted grids did, bit for bit: a fresh partial per
   active contraction block, one ``fmaf`` chain in ascending order, then
-  ``acc += partial``.
+  ``acc += partial``.  The same kernel, in a third layout (``nn``), is
+  the float32 training forward, ``dispatch.block_matmul_nn``, counted
+  under ``dispatch``.
 
 The kernels take every block edge in :data:`EDGES`; the plain versions
 take any type and edge.  :func:`takes` is the route rule of
-``core/dynasparse.BlockMatmulFn``.
+``core/dynasparse.BlockMatmulFn``, for the backward and (float32) the
+forward.
 """
 from __future__ import annotations
 
@@ -49,7 +52,8 @@ from repro_torch.kernels import build
 
 launches = 0
 EDGES = (64, 128, 256)      # block edges the kernels take
-LAYOUTS = ("nt", "tn")
+LAYOUTS = ("nt", "tn")      # the backward's products
+F32_LAYOUTS = LAYOUTS + ("nn",)   # the float32 kernel's (nn: the forward)
 DTYPES = (torch.bfloat16, torch.float32)   # the kernels' operand types
 GROUP = 8                   # tile rows of a group in the tiles' order
                             # (8 x 16 of a 16 x 32 grid in flight at once)
@@ -69,7 +73,8 @@ def takes(dtype: torch.dtype, block: Tuple[int, int, int]) -> bool:
     """Whether the backward of a ``dtype`` forward at ``block`` runs on
     this module (bf16 or float32 with every edge in :data:`EDGES`);
     anything else keeps the two ``dispatch`` launches over the permuted
-    grids."""
+    grids.  A float32 forward that this holds for runs on the same
+    float32 kernel (``dispatch.block_matmul_nn``)."""
     return dtype in DTYPES and all(b in EDGES for b in block)
 
 
@@ -144,7 +149,8 @@ def bwd_launch_f32(layout: str, rows: int, cols: int,
                    block: Tuple[int, int, int],
                    sms: int = build.H100_SMS) -> BwdLaunch:
     """The launch shape of the float32 kernel (``csrc/dispatch_bwd_f32.cu``)
-    for the ``layout`` product with a ``rows`` x ``cols`` output, as
+    for the ``layout`` product (one of :data:`F32_LAYOUTS`; ``nn`` is the
+    forward) with a ``rows`` x ``cols`` output, as
     :func:`bwd_launch`: tiles of min(128, edge) along each output edge, so
     a tile never crosses an output block (256 threads of 8 x 8 outputs at
     128 x 128); one CTA per SM at most (its accumulators and partials take
@@ -165,7 +171,9 @@ def _walk(layout: str, grid: Tuple[int, int, int],
         return bm, bk, bn, J, J * K, 1, K
     if layout == "tn":     # dw (kd, n): blocks (bk, bn), contraction bm
         return bk, bn, bm, I, 1, K, J * K
-    raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    if layout == "nn":     # the forward (m, n): blocks (bm, bn), depth bk
+        return bm, bn, bk, K, J * K, K, 1
+    raise ValueError(f"layout {layout!r} not in {F32_LAYOUTS}")
 
 
 def _tiled(layout, rows, cols, grid, block, tile_m, tile_n, sms):
@@ -196,6 +204,9 @@ def _check(name, a_rows, a_cols, b_rows, b_cols, codes, block, layout):
     if layout == "nt":    # g (m, n) @ w (kd, n).T
         fits = (a_rows <= I * bm and a_cols <= J * bn and b_rows <= K * bk
                 and b_cols == a_cols)
+    elif layout == "nn":  # x (m, kd) @ y (kd, n)
+        fits = (a_rows <= I * bm and a_cols <= K * bk and b_cols <= J * bn
+                and b_rows == a_cols)
     else:                 # x (m, kd).T @ g (m, n)
         fits = (a_rows <= I * bm and a_cols <= K * bk and b_cols <= J * bn
                 and b_rows == a_rows)
@@ -282,18 +293,26 @@ def _require_rows(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
             f"{t.data_ptr():#x}")
 
 
-def _launch(layout, a, b, codes, block, out_dtype):
-    """One product on the kernel of ``b``'s type (``a`` must match it)."""
-    global launches
+OPERANDS = {"nt": ("g", "w"), "tn": ("x", "g"), "nn": ("x", "y")}
+
+
+def launch_product(layout: str, a: torch.Tensor, b: torch.Tensor,
+                   codes: torch.Tensor, block: Tuple[int, int, int],
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One ``layout`` product on the kernel of ``b``'s type (``a`` must
+    match it; the forward, ``nn``, takes only float32), the checks first;
+    nothing is counted here: the caller counts the launch when the result
+    is not empty (``dispatch_bwd`` for ``nt`` and ``tn``, ``dispatch`` for
+    ``nn``)."""
     name = f"block_matmul_{layout}"
     build.refuse_grad(name, a, b)
     if any(e not in EDGES for e in block):
         raise ValueError(f"{name}: block {block} not supported by the "
                          f"kernel (every edge in {EDGES})")
-    f32 = b.dtype == torch.float32
+    f32 = layout == "nn" or b.dtype == torch.float32
     kind = torch.float32 if f32 else torch.bfloat16
-    _require_rows(f"{name} {'g' if layout == 'nt' else 'x'}", a, kind)
-    _require_rows(f"{name} {'w' if layout == 'nt' else 'g'}", b, kind)
+    for label, t in zip(OPERANDS[layout], (a, b)):
+        _require_rows(f"{name} {label}", t, kind)
     build.require(f"{name} codes", codes, torch.int32)
     _check(name, *a.shape, *b.shape, codes, block, layout)
     dtype = out_dtype or a.dtype
@@ -301,8 +320,9 @@ def _launch(layout, a, b, codes, block, out_dtype):
                      else (torch.bfloat16, torch.float32)):
         raise ValueError(f"{name}: out_dtype {dtype} not "
                          f"{'float32' if f32 else 'bf16 or float32'}")
-    rows, cols = ((a.shape[0], b.shape[0]) if layout == "nt"
-                  else (a.shape[1], b.shape[1]))
+    rows, cols = {"nt": (a.shape[0], b.shape[0]),
+                  "tn": (a.shape[1], b.shape[1]),
+                  "nn": (a.shape[0], b.shape[1])}[layout]
     out = torch.empty((rows, cols), dtype=dtype, device=a.device)
     if out.numel() == 0:
         return out
@@ -310,7 +330,7 @@ def _launch(layout, a, b, codes, block, out_dtype):
         layout, rows, cols, tuple(codes.shape), tuple(block),
         build.sm_count(a.device))
     queue = torch.empty((1,), dtype=torch.int32, device=a.device)
-    operands = (LAYOUTS.index(layout),
+    operands = (F32_LAYOUTS.index(layout),
                 a.data_ptr(), a.shape[0], a.shape[1], a.stride(0),
                 b.data_ptr(), b.shape[0], b.shape[1], b.stride(0),
                 codes.data_ptr(), queue.data_ptr(), out.data_ptr())
@@ -320,12 +340,22 @@ def _launch(layout, a, b, codes, block, out_dtype):
     if f32:
         fn = build.function("dispatch_bwd_f32", "rt_dispatch_bwd_f32",
                             C_ARGS_F32)
-        build.check(fn(*operands, *shape), "dispatch_bwd (float32)")
+        build.check(fn(*operands, *shape),
+                    "dispatch (float32, nn)" if layout == "nn"
+                    else "dispatch_bwd (float32)")
     else:
         fn = build.function("dispatch_bwd", "rt_dispatch_bwd", C_ARGS)
         build.check(fn(*operands, int(dtype == torch.float32), *shape),
                     "dispatch_bwd")
-    launches += 1
+    return out
+
+
+def _launch(layout, a, b, codes, block, out_dtype):
+    """One backward product, counted under ``dispatch_bwd``."""
+    global launches
+    out = launch_product(layout, a, b, codes, block, out_dtype)
+    if out.numel():
+        launches += 1
     return out
 
 

@@ -1429,6 +1429,79 @@ def test_dispatch_bwd_f32_raises_on_what_it_does_not_take(cuda):
         B.block_matmul_nt(g, w, codes, block, out_dtype=torch.bfloat16)
 
 
+@pytest.mark.parametrize("skip", ["random", "half", "all"])
+@pytest.mark.parametrize("shape,block", [
+    ((2048, 2048, 8192), (256, 256, 256)),     # llama3.2-1b's w1, w3
+    ((2048, 8192, 2048), (256, 256, 256)),     # its w2
+    ((2048, 2048, 10944), (256, 256, 256)),    # deepseek's ragged w1
+    ((300, 320, 400), (128, 64, 256)), ((130, 192, 200), (64, 64, 128)),
+    ((40, 64, 72), (64, 64, 64)), ((256, 512, 260), (256, 128, 64))])
+def test_dispatch_nn_equals_the_walk_bitwise(cuda, skip, shape, block):
+    """The float32 training forward (``dispatch.block_matmul_nn``,
+    ``csrc/dispatch_bwd_f32.cu`` in its nn layout) on grids of SKIP, GEMM,
+    SPDMM and SPMM codes, x with zero 16 x 16 tiles (so the walk skips
+    some): bitwise the walk route, ``block_matmul`` cut to (m, n); within
+    3e-4 of the largest |want| of the plain version; one launch, counted
+    under ``dispatch``."""
+    m, k, n = shape
+    bm, bk, bn = block
+    I, J, Kb = -(-m // bm), -(-n // bn), -(-k // bk)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + n + len(skip))
+    codes = torch.randint(1, 4, (I, J, Kb), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    p = {"random": 0.25, "half": 0.5, "all": 1.1}[skip]
+    codes[torch.rand((I, J, Kb), generator=gen, device=cuda) < p] = 0
+    tiles = torch.rand((-(-m // 16), -(-k // 16)), generator=gen,
+                       device=cuda) < 0.7
+    keep = tiles.repeat_interleave(16, 0).repeat_interleave(16, 1)
+    x = torch.randn((m, k), generator=gen, device=cuda) * keep[:m, :k]
+    y = torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5
+    K.reset_launch_counts()
+    got = dispatch.block_matmul_nn(x, y, codes, block)
+    assert K.launch_counts()["dispatch"] == 1
+    walk = dispatch.block_matmul(x, y, codes, block, pad_rows=False)[:m, :n]
+    want = dispatch.block_matmul_plain(x, y, codes, block,
+                                       pad_rows=False)[:m, :n]
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got, walk)
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 3e-4 * max(float(want.abs().max()), 1.0), err
+    if skip == "all":
+        assert torch.all(got == 0) and not torch.signbit(got).any()
+
+
+def test_dispatch_nn_raises_on_what_it_does_not_take(cuda):
+    """bf16, mixed types, misaligned or non-unit-stride rows, a CPU
+    operand, an edge outside EDGES and an operand under grad raise; nothing
+    falls back to the walk."""
+    block = (64, 64, 64)
+    codes = torch.ones((2, 2, 1), dtype=torch.int32, device=cuda)
+    x = torch.randn((128, 64), device=cuda)
+    y = torch.randn((64, 128), device=cuda)
+    flat = torch.zeros(1 + 128 * 64, device=cuda)
+    odd = flat[1:].view(128, 64)                            # 4-byte offset
+    wide = torch.zeros((128, 66), device=cuda)[:, :64]      # 264-byte rows
+    K.reset_launch_counts()
+    for a_, b_, blk, match in (
+            (x.bfloat16(), y.bfloat16(), block, "expected a CUDA float32"),
+            (x, y.bfloat16(), block, "expected a CUDA float32"),
+            (odd, y, block, "16-byte aligned"),
+            (wide, y, block, "16-byte aligned"),
+            (x, torch.randn((128, 64), device=cuda).T, block,
+             "unit column stride"),
+            (x.cpu(), y, block, "expected a CUDA float32"),
+            (x, y, (64, 32, 64), "not supported by the kernel")):
+        c = codes if blk == block else torch.ones(
+            (2, 2, 2), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match=match):
+            dispatch.block_matmul_nn(a_, b_, c, blk)
+    with torch.enable_grad(), pytest.raises(ValueError, match="no backward"):
+        dispatch.block_matmul_nn(x.requires_grad_(), y, codes, block)
+    assert K.launch_counts()["dispatch"] == 0
+
+
 def test_float32_below_the_kernels_edges_keeps_two_launches(cuda):
     """BlockMatmulFn in float32: at (16, 64, 128) the two dispatch launches
     over the permuted grids, at (64, 64, 128) one dispatch_bwd launch per
@@ -1530,8 +1603,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dyn):
                       K.launch_counts()["dispatch_bwd"])))
     (l0, g0, p0, _), (l1, g1, p1, launches) = outs
     assert abs(l0 - l1) <= 1e-4 * abs(l0) and abs(g0 - g1) <= 1e-3 * g0
-    # 2 steps x 2 layers x 3 FFN products: one forward dispatch launch and
-    # two backward dispatch_bwd launches (float32 at (256, 256, 256))
+    # 2 steps x 2 layers x 3 FFN products: one forward dispatch launch
+    # (block_matmul_nn's, counted under dispatch) and two backward
+    # dispatch_bwd launches (float32 at (256, 256, 256))
     assert launches == ((2 * 6, 2 * 6 * 2) if dyn else (0, 0))
     for a, b in zip(p0, p1):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

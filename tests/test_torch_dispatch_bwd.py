@@ -286,11 +286,13 @@ def test_f32_tile_schedule_and_walk(layout, rows, cols, grid, block):
 def test_block_matmul_fn_takes_the_route(monkeypatch, dtype, block, route):
     """The Function's backward: dispatch_bwd's two products on bf16 and
     float32 grids with every edge in EDGES (the forward's codes, g cast
-    once), else two dispatch launches over the permuted grids."""
+    once), else two dispatch launches over the permuted grids.  Its
+    forward: ``block_matmul_nn`` in float32 at those edges, else the
+    walk, ``block_matmul``."""
     x, w, g = _operands(130, 192, 200, block, 5)
     tdt = getattr(torch, dtype)
     calls = []
-    for mod, names in ((dispatch, ["block_matmul"]),
+    for mod, names in ((dispatch, ["block_matmul", "block_matmul_nn"]),
                        (dispatch_bwd, ["block_matmul_nt",
                                        "block_matmul_tn"])):
         for name in names:
@@ -309,8 +311,8 @@ def test_block_matmul_fn_takes_the_route(monkeypatch, dtype, block, route):
     (res.out.float() * torch.from_numpy(g)).sum().backward()
     names = [c[0] for c in calls]
     if route == "dispatch_bwd":
-        assert names == ["block_matmul", "block_matmul_nt",
-                         "block_matmul_tn"]
+        forward = "block_matmul_nn" if dtype == "float32" else "block_matmul"
+        assert names == [forward, "block_matmul_nt", "block_matmul_tn"]
         assert calls[1][1:] == ((130, 200), tdt)     # g, cast once
         assert calls[2][1:] == ((130, 192), tdt)     # x in place
     else:

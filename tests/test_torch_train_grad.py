@@ -119,6 +119,7 @@ def test_dynasparse_grad_is_the_reference_masked_vjp(
 
     calls = []
     for mod, name in ((dispatch, "block_matmul"),
+                      (dispatch, "block_matmul_nn"),
                       (dispatch_bwd, "block_matmul_nt"),
                       (dispatch_bwd, "block_matmul_tn")):
         def spy(x_, y_, codes, blk, _real=getattr(mod, name), _name=name,
@@ -137,15 +138,18 @@ def test_dynasparse_grad_is_the_reference_masked_vjp(
     np.testing.assert_array_equal(res.codes.numpy(), np.asarray(jcodes))
     assert "BlockMatmulFnBackward" in _grad_fns(res.out.grad_fn)
     (res.out.float() * torch.from_numpy(g)).sum().backward()
-    # one forward launch, then dx and dw: on bf16 and float32 grids with
-    # every edge in {64, 128, 256} dispatch_bwd's two products over the
+    # one forward launch (float32 at every edge in {64, 128, 256} on the
+    # tiled block_matmul_nn, else the walk), then dx and dw: on bf16 and
+    # float32 grids at those edges dispatch_bwd's two products over the
     # forward's codes, else two dispatch launches over the permuted grids,
     # whose codes are GEMM wherever the forward ran a step
     m, k = x.shape
     n = w.shape[1]
     if dispatch_bwd.takes(tdt, block):
+        forward = ("block_matmul_nn" if tdt == torch.float32
+                   else "block_matmul")
         assert [c[:4] for c in calls] == [
-            ("block_matmul", (m, k), (k, n), block),
+            (forward, (m, k), (k, n), block),
             ("block_matmul_nt", (m, n), (k, n), block),
             ("block_matmul_tn", (m, k), (m, n), block)]
         assert calls[1][4] == calls[2][4] == calls[0][4]

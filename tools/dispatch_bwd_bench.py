@@ -145,8 +145,8 @@ def main() -> int:
                             torch, lambda fn=fn, o=outs[v]: launch(
                                 fn, layout, a, b, codes, o)))
                     ms["torch.matmul"].append(chip_smoke.cuda_ms(torch, lib))
-                flops, nbytes = chip_smoke.bwd_work(torch, layout, a, b,
-                                                    codes, BLOCK)
+                flops, nbytes = chip_smoke.tiled_work(torch, layout, a, b,
+                                                      codes, BLOCK)
                 rec = {"product": f"{'dx' if layout == 'nt' else 'dw'} of "
                        f"{prod}", "grid": grid,
                        "active_steps": float((codes != 0).float().mean()),
