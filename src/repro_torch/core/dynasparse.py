@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import analyzer, formats, profiler
 from repro_torch.core.ir import KernelType
 from repro_torch.core.perf_model import FPGACostModel, Format, Primitive
@@ -68,6 +69,7 @@ from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import spdmm as _spdmm
 
 TILE = (16, 16)     # the static SpDMM route's Block-CSR tile
+_NO_SPANS = trace.KernelSpans(*[None] * len(trace.KernelSpans._fields))
 
 
 @dataclasses.dataclass
@@ -236,6 +238,7 @@ def dynasparse_matmul(
     cost_model=FPGACostModel(),
     format_aware: bool = False,
     csr_rmax: int = 64,
+    spans: Optional[trace.KernelSpans] = None,
 ) -> DynasparseResult:
     """``x @ y`` with per-(partition pair) primitive dispatch + epilogue.
 
@@ -246,10 +249,13 @@ def dynasparse_matmul(
     profiled at ``out_block`` (default (bm, bn)).  With ``format_aware``
     the planner also scores row-CSR (``analyzer.plan_format``); the CSR path
     runs when CSR wins AND every row fits ``csr_rmax`` (checked on the
-    device).
+    device).  ``spans`` names the block path, the epilogue and the
+    writeback profile after the caller's IR kernel (``repro_torch.trace``);
+    without it they open no span.
     """
     m, n = x.shape[0], y.shape[1]
     bm, bk, bn = block
+    names = spans or _NO_SPANS
     if dens_x is None:
         dens_x = profiler.block_density(x.detach(), (bm, bk))
     if dens_y is None:
@@ -274,33 +280,37 @@ def dynasparse_matmul(
         fits = (ell.row_counts.max() <= csr_rmax if m
                 else torch.ones((), dtype=torch.bool, device=y.device))
         use_csr = ((fmt == Format.CSR) & fits).to(torch.int32)
-        buf = torch.empty((I * bm, J * bn), dtype=torch.float32,
-                          device=y.device)
-        out = _block_path(x, y, codes, block, None, buf, use_csr)
-        _csr.csr_spmm(ell.values, ell.cols, ell.row_counts, y.contiguous(),
-                      out=buf, run=use_csr)
+        with trace.span(names.block_path):
+            buf = torch.empty((I * bm, J * bn), dtype=torch.float32,
+                              device=y.device)
+            out = _block_path(x, y, codes, block, None, buf, use_csr)
+            _csr.csr_spmm(ell.values, ell.cols, ell.row_counts,
+                          y.contiguous(), out=buf, run=use_csr)
         executed_fmt = use_csr
     else:
         static = (None if strategy == "dynamic"
                   else analyzer.static_primitive(strategy, kernel_type))
-        out = _block_path(x, y, codes, block, static, None, None)
+        with trace.span(names.block_path):
+            out = _block_path(x, y, codes, block, static, None, None)
         executed_fmt = torch.zeros((), dtype=torch.int32, device=y.device)
-    out = out.to(out_dtype)
 
-    if residual is not None:
-        out = out + (residual if epilogue_scale == 1.0
-                     else residual * epilogue_scale)
-    if activation == "relu":
-        out = torch.relu(out)
-    elif activation == "prelu":
-        out = torch.where(out >= 0, out, 0.25 * out)
-    elif activation != "none":
-        raise ValueError(f"unknown activation {activation!r}")
-    out = out.contiguous()
+    with trace.span(names.epilogue):
+        out = out.to(out_dtype)
+        if residual is not None:
+            out = out + (residual if epilogue_scale == 1.0
+                         else residual * epilogue_scale)
+        if activation == "relu":
+            out = torch.relu(out)
+        elif activation == "prelu":
+            out = torch.where(out >= 0, out, 0.25 * out)
+        elif activation != "none":
+            raise ValueError(f"unknown activation {activation!r}")
+        out = out.contiguous()
 
     ob = out_block or (bm, bn)
-    out_counts = profiler.block_counts(out.detach(), ob)
-    out_density = profiler.density_from_counts(out_counts, m, n, *ob)
+    with trace.span(names.writeback):
+        out_counts = profiler.block_counts(out.detach(), ob)
+        out_density = profiler.density_from_counts(out_counts, m, n, *ob)
     return DynasparseResult(out, codes, dens_x, dens_y, out_density,
                             out_counts, executed_fmt)
 

@@ -35,6 +35,10 @@ propagated in float64 numpy (:func:`propagate_stats`), each kernel is
 planned on the device (``analyzer.plan_kernel_host``) and costed and
 scheduled on the host.  This is how the paper-table results evaluate
 graphs whose dense operands would not fit (NELL, Reddit).
+
+Both engines open ``repro_torch.trace`` spans around their phases while a
+profiler records, and count ``runs``, ``host_syncs`` and (``run``)
+``run_host_ns``.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import analyzer, formats, profiler, scheduler
 from repro_torch.core.compiler import CompiledModel
 from repro_torch.core.dynasparse import (DynasparseResult,
@@ -285,6 +290,9 @@ def simulate_inference(compiled: CompiledModel,
 
 
 def _sync(t: torch.Tensor) -> None:
+    """Wait for the device to finish ``t`` (counted as a host sync on any
+    device)."""
+    trace.count("host_syncs")
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
 
@@ -319,6 +327,7 @@ def _bookkeep_kernel(k: KernelIR, codes, dens_x, dens_y, n_cc: int, model
     """Host bookkeeping from the planner's codes (the MicroBlaze's role):
     Table IV per-task costs, Alg. 8 scheduling, primitive histogram, modeled
     + measured K2P time.  The only place the codes leave the device."""
+    trace.count("host_syncs", 3)
     codes = codes.cpu().numpy()
     dx = dens_x.cpu().numpy()
     dy = dens_y.cpu().numpy()
@@ -367,6 +376,7 @@ class DynasparseEngine:
 
     def run(self, compiled: CompiledModel, tensors: Dict[str, torch.Tensor]
             ) -> Tuple[Dict[str, torch.Tensor], InferenceReport]:
+        trace.count("runs")
         env = dict(tensors)
         n_cc = self.n_cc or compiled.partition.n_cc
         self.profiled_densities = {}
@@ -408,16 +418,19 @@ class DynasparseEngine:
         x = env[_agg_lhs_name(k) if k.kernel_type == KernelType.AGGREGATE
                 else k.lhs]
         y = env[k.rhs]
-        if k.kernel_type == KernelType.ATTENTION:
-            res = _attention(k, x, y, env)
-        else:
-            residual = (env[k.epilogue_add]
-                        if k.epilogue_add is not None else None)
-            fn = self._executor(k, x, y, residual is not None)
-            res = fn(x, y, residual=residual)
+        spans = trace.kernel_spans(k.name)
+        with trace.span(spans.kernel):
+            if k.kernel_type == KernelType.ATTENTION:
+                res = _attention(k, x, y, env)
+            else:
+                residual = (env[k.epilogue_add]
+                            if k.epilogue_add is not None else None)
+                fn = self._executor(k, x, y, residual is not None)
+                res = fn(x, y, residual=residual, spans=spans)
         _sync(res.out)
         self.profiled_densities[k.out] = res.out_density
         if self.keep_codes:
+            trace.count("host_syncs", 2)
             self.planned_codes[k.out] = res.codes.cpu().numpy()
             self.planned_formats[k.out] = int(res.fmt)
         rep = _bookkeep_kernel(k, res.codes, res.dens_x, res.dens_y,
@@ -427,11 +440,14 @@ class DynasparseEngine:
 
 @dataclasses.dataclass
 class _WalkPlan:
-    """What the fused executor builds once per (model, tensor signature)."""
+    """What the fused executor builds once per (model, tensor signature):
+    the kernels in walk order, their operand flows, the graph-input
+    profiles they need and each kernel's span names."""
 
     kernels: list
     flows: list
     needed: List[tuple]
+    spans: List[trace.KernelSpans]
 
 
 class FusedModelExecutor:
@@ -518,11 +534,12 @@ class FusedModelExecutor:
                     seen.append(key)
         return seen
 
-    def _trace_kernels(self, kernels, flows, env: Dict[str, torch.Tensor],
+    def _trace_kernels(self, plan: _WalkPlan, env: Dict[str, torch.Tensor],
                        profiles: Dict[tuple, profiler.BlockProfile]) -> list:
-        """Walk the kernels, planning each from ``profiles`` (graph inputs)
-        or the producer's chained writeback counts.  Mutates ``env`` and
-        returns the per-kernel (codes, dens_x, dens_y, out_density, fmt).
+        """Walk ``plan``'s kernels, each in its span, planning each from
+        ``profiles`` (graph inputs) or the producer's chained writeback
+        counts.  Mutates ``env`` and returns the per-kernel (codes, dens_x,
+        dens_y, out_density, fmt).
 
         ELL sharing: the first kernel that reads a source converts it; a
         later kernel reuses that view when it or any earlier reader wanted
@@ -532,54 +549,10 @@ class FusedModelExecutor:
         counts_env: Dict[str, profiler.BlockProfile] = {}
         ell_env: Dict[tuple, tuple] = {}    # key -> (want so far, full view)
         sides = []
-        for k, (fx, fy) in zip(kernels, flows):
-            x, y = env[fx.source], env[fy.source]
-            if k.kernel_type == KernelType.ATTENTION:
-                # no planning of its own: its output density is known only
-                # after it runs, and its writeback counts feed the head's
-                # Aggregate
-                res = _attention(k, x, y, env)
-            else:
-                prof_x, prof_y = (
-                    counts_env[f.source].pool_rows(f.pool_rows)
-                                        .pool_cols(f.pool_cols)
-                    if f.producer is not None
-                    else profiles[(f.source, f.block)]
-                    for f in (fx, fy))
-                codes, dens_x, dens_y = analyzer.plan_codes_from_profiles(
-                    self.strategy, prof_x, prof_y, self.model,
-                    kernel_type=k.kernel_type)
-                fmt = ell = None
-                if self.format_aware:
-                    fmt = analyzer.plan_format(
-                        self.strategy, dens_x, dens_y, tuple(x.shape),
-                        y.shape[1], k.block_dims, self.model,
-                        kernel_type=k.kernel_type, rmax=self.csr_rmax)
-                    if fmt is not None:
-                        ekey = (fx.source, tuple(x.shape))
-                        prev = ell_env.get(ekey)
-                        if prev is None:
-                            want = fmt
-                            full = formats.dense_to_ell(x, rmax=self.csr_rmax)
-                        else:
-                            prev_want, full = prev
-                            want = torch.maximum(prev_want, fmt)
-                        ell = mask_ell(full, want)
-                        ell_env[ekey] = (want, full)
-                residual = (env[k.epilogue_add]
-                            if k.epilogue_add is not None else None)
-                res = dynasparse_matmul(
-                    x, y, codes=codes, dens_x=dens_x, dens_y=dens_y,
-                    fmt=fmt, ell=ell, residual=residual,
-                    strategy=self.strategy, kernel_type=k.kernel_type,
-                    epilogue_scale=(k.epilogue_scale
-                                    if residual is not None else 1.0),
-                    activation=(k.activation.value
-                                if k.activation_enabled else "none"),
-                    out_block=(k.scheme.n2, k.scheme.n2),
-                    block=k.block_dims,
-                    cost_model=self.model, format_aware=self.format_aware,
-                    csr_rmax=self.csr_rmax)
+        for k, (fx, fy), spans in zip(plan.kernels, plan.flows, plan.spans):
+            with trace.span(spans.kernel):
+                res = self._trace_kernel(k, fx, fy, spans, env, profiles,
+                                         counts_env, ell_env)
             n2 = k.scheme.n2
             env[k.out] = res.out
             counts_env[k.out] = profiler.BlockProfile(
@@ -587,6 +560,61 @@ class FusedModelExecutor:
             sides.append((res.codes, res.dens_x, res.dens_y,
                           res.out_density, res.fmt))
         return sides
+
+    def _trace_kernel(self, k: KernelIR, fx, fy, spans: trace.KernelSpans,
+                      env: Dict[str, torch.Tensor],
+                      profiles: Dict[tuple, profiler.BlockProfile],
+                      counts_env: Dict[str, profiler.BlockProfile],
+                      ell_env: Dict[tuple, tuple]) -> DynasparseResult:
+        """One kernel of :meth:`_trace_kernels`: plan, share the ELL view,
+        run."""
+        x, y = env[fx.source], env[fy.source]
+        if k.kernel_type == KernelType.ATTENTION:
+            # no planning of its own: its output density is known only after
+            # it runs, and its writeback counts feed the head's Aggregate
+            return _attention(k, x, y, env)
+        with trace.span(spans.plan):
+            prof_x, prof_y = (
+                counts_env[f.source].pool_rows(f.pool_rows)
+                                    .pool_cols(f.pool_cols)
+                if f.producer is not None
+                else profiles[(f.source, f.block)]
+                for f in (fx, fy))
+            codes, dens_x, dens_y = analyzer.plan_codes_from_profiles(
+                self.strategy, prof_x, prof_y, self.model,
+                kernel_type=k.kernel_type)
+            fmt = ell = None
+            if self.format_aware:
+                fmt = analyzer.plan_format(
+                    self.strategy, dens_x, dens_y, tuple(x.shape),
+                    y.shape[1], k.block_dims, self.model,
+                    kernel_type=k.kernel_type, rmax=self.csr_rmax)
+        if fmt is not None:
+            with trace.span(spans.format):
+                ekey = (fx.source, tuple(x.shape))
+                prev = ell_env.get(ekey)
+                if prev is None:
+                    want = fmt
+                    full = formats.dense_to_ell(x, rmax=self.csr_rmax)
+                else:
+                    prev_want, full = prev
+                    want = torch.maximum(prev_want, fmt)
+                ell = mask_ell(full, want)
+                ell_env[ekey] = (want, full)
+        residual = (env[k.epilogue_add]
+                    if k.epilogue_add is not None else None)
+        return dynasparse_matmul(
+            x, y, codes=codes, dens_x=dens_x, dens_y=dens_y,
+            fmt=fmt, ell=ell, residual=residual,
+            strategy=self.strategy, kernel_type=k.kernel_type,
+            epilogue_scale=(k.epilogue_scale
+                            if residual is not None else 1.0),
+            activation=(k.activation.value
+                        if k.activation_enabled else "none"),
+            out_block=(k.scheme.n2, k.scheme.n2),
+            block=k.block_dims,
+            cost_model=self.model, format_aware=self.format_aware,
+            csr_rmax=self.csr_rmax, spans=spans)
 
     def _program(self, compiled: CompiledModel, key: tuple) -> _WalkPlan:
         """The walk plan cached under ``key``: a single inference's
@@ -598,8 +626,9 @@ class FusedModelExecutor:
         self.cache_misses += 1
         self.trace_count += 1
         flows = self._resolved_flows(compiled)
-        plan = _WalkPlan(compiled.graph.topo_order(), flows,
-                         self._needed_inputs(flows))
+        kernels = compiled.graph.topo_order()
+        plan = _WalkPlan(kernels, flows, self._needed_inputs(flows),
+                         [trace.kernel_spans(k.name) for k in kernels])
         self._programs[key] = plan
         return plan
 
@@ -622,38 +651,53 @@ class FusedModelExecutor:
         holds the final output (all intermediates too iff
         ``keep_intermediates``); the report carries the per-kernel
         bookkeeping plus ``fused_wall_seconds``."""
-        n_cc = self.n_cc or compiled.partition.n_cc
-        plan = self._program(compiled, self._signature(compiled, tensors))
-        in_counts = self._input_counts(plan.needed, tensors)
-        t0 = time.perf_counter()
-        env = dict(tensors)
-        profiles = {
-            (name, blk): profiler.BlockProfile(
-                counts, tuple(env[name].shape), blk)
-            for (name, blk), counts in zip(plan.needed, in_counts)}
-        sides = self._trace_kernels(plan.kernels, plan.flows, env, profiles)
-        final = plan.kernels[-1].out
-        _sync(env[final])
-        wall = time.perf_counter() - t0
-        outs = (env if self.keep_intermediates else {final: env[final]})
+        t_enter = time.perf_counter_ns()
+        trace.count("runs")
+        with trace.span(trace.RUN):
+            n_cc = self.n_cc or compiled.partition.n_cc
+            with trace.span(trace.RUN_SIGNATURE):
+                plan = self._program(compiled,
+                                     self._signature(compiled, tensors))
+            with trace.span(trace.RUN_INPUT_PROFILES):
+                in_counts = self._input_counts(plan.needed, tensors)
+            t0 = time.perf_counter()
+            env = dict(tensors)
+            profiles = {
+                (name, blk): profiler.BlockProfile(
+                    counts, tuple(env[name].shape), blk)
+                for (name, blk), counts in zip(plan.needed, in_counts)}
+            sides = self._trace_kernels(plan, env, profiles)
+            final = plan.kernels[-1].out
+            trace.count("run_host_ns", time.perf_counter_ns() - t_enter)
+            with trace.span(trace.RUN_SYNC):
+                _sync(env[final])
+            wall = time.perf_counter() - t0
+            with trace.span(trace.RUN_REPORT):
+                outs = (env if self.keep_intermediates
+                        else {final: env[final]})
+                reports = self._report(plan.kernels, sides, n_cc)
+        return outs, InferenceReport(reports, self.strategy,
+                                     fused_wall_seconds=wall)
 
-        topo = plan.kernels
+    def _report(self, topo, sides, n_cc: int) -> List[KernelReport]:
+        """``run``'s bookkeeping: the profiled densities, the codes and
+        formats under ``keep_codes``, the kernel reports under
+        ``collect_report``."""
         self.profiled_densities = {
             k.out: side[3] for k, side in zip(topo, sides)}
         if self.keep_codes:
+            trace.count("host_syncs", 2 * len(topo))
             self.planned_codes = {
                 k.out: side[0].cpu().numpy() for k, side in zip(topo, sides)}
             self.planned_formats = {
                 k.out: side[4].cpu().numpy() for k, side in zip(topo, sides)}
-        reports = []
-        if self.collect_report:
-            reports = [
-                _bookkeep_kernel(k, codes, dens_x, dens_y, n_cc, self.model)
+        if not self.collect_report:
+            return []
+        return [_bookkeep_kernel(k, codes, dens_x, dens_y, n_cc, self.model)
                 for k, (codes, dens_x, dens_y, _, _fmt) in zip(topo, sides)]
-        return outs, InferenceReport(reports, self.strategy,
-                                     fused_wall_seconds=wall)
 
     # -- batched (multi-tenant) execution ------------------------------------
+    @trace.spanned(trace.WAVE_LAUNCH)
     def launch_batch(self, compiled: CompiledModel,
                      shared: Dict[str, torch.Tensor],
                      batched: Dict[str, torch.Tensor],
@@ -748,8 +792,7 @@ class FusedModelExecutor:
             for (name, blk), counts in zip(request_needed, wave_counts):
                 profiles[(name, blk)] = profiler.BlockProfile(
                     counts[b], tuple(env[name].shape), blk)
-            slot_sides.append(self._trace_kernels(plan.kernels, plan.flows,
-                                                  env, profiles))
+            slot_sides.append(self._trace_kernels(plan, env, profiles))
             slot_outs.append([env[name] for name in keep])
         outs = {name: torch.stack([o[i] for o in slot_outs])
                 for i, name in enumerate(keep)}
@@ -777,11 +820,14 @@ class FusedModelExecutor:
             out[name] = v
         return out
 
+    @trace.spanned(trace.WAVE_FINISH)
     def finish_batch(self, pending: PendingWave
                      ) -> Tuple[Dict[str, torch.Tensor], InferenceReport]:
         """Block on a :meth:`launch_batch` wave and assemble its report
         (the synchronous half of :meth:`run_batch`).  A sharded wave's
         lanes are gathered in slot order onto the first lane's device."""
+        trace.count("runs", pending.wave_slots)
+        trace.count("host_syncs", len(pending.done))
         for ev in pending.done:
             ev.synchronize()
         wall = time.perf_counter() - pending.launched_at
@@ -798,6 +844,7 @@ class FusedModelExecutor:
         self.profiled_densities = {
             k.out: side[3] for k, side in zip(topo, sides)}      # (B, ...)
         if self.keep_codes:
+            trace.count("host_syncs", 2 * len(topo))
             self.planned_codes = {
                 k.out: side[0].cpu().numpy() for k, side in zip(topo, sides)}
             self.planned_formats = {       # (B,) executed Format per slot

@@ -9,8 +9,10 @@ GAT's masked edge-softmax (jnp in the reference's
 plain PyTorch version and its launch counter (``<module>.launches``;
 the batched ``tile_nnz`` route counts in ``profile.batched_launches``);
 ``ops`` holds the padding and format wrappers, ``build`` compiles
-``csrc/`` with ``nvcc`` at first use.
+``csrc/`` with ``nvcc`` at first use.  The counters of
+``repro_torch.trace`` share the launch counts' window.
 """
+from repro_torch import trace
 from repro_torch.kernels import (csr_spmm, dispatch,  # noqa: F401
                                  dispatch_bwd, edge_softmax,
                                  flash_attention, gemm, ops, profile, spdmm,
@@ -32,6 +34,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts and ``repro_torch.trace``'s counters."""
+    trace.reset()
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
     profile.batched_launches = 0

@@ -26,17 +26,23 @@ counted here.
 
 :func:`block_matmul_plain` is the plain PyTorch version with the
 reference's per-step accumulation (``acc + step``).
+
+Both walk routes count their tile-bitmask (or flag) pass over x in
+``repro_torch.trace`` (:func:`count_bitmask_pass`): the bytes it reads,
+the part an earlier pass already read unchanged, and the scratch.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import build
 from repro_torch.kernels import dispatch_bwd as _bwd
 from repro_torch.kernels.profile import tile_nnz
@@ -48,6 +54,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 MMA_ROWS = (16, 32, 64, 128)    # CTA tile rows of the bf16 route
 MMA_COLS = 128                  # CTA tile columns at most
 H100_SMS = build.H100_SMS
+# id(x) -> (weak reference to x, its _version, the k-block edges whose
+# bitmask pass has read it at that version); not a counter, so
+# trace.reset() leaves it
+_passes: Dict[int, tuple] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +182,35 @@ def fma_scratch(m: int, K: int, bk: int, n: int, x_aligned: bool,
     words = tiles * K * -(-(bk // TILE) // 32)
     x_tiles = 0 if x_aligned or not words else tiles * K * bk * TILE
     return -(-words // 4) * 4, x_tiles, 0 if y_aligned else -(-n // 4) * 4
+
+
+def count_bitmask_pass(x: torch.Tensor, bk: int, scratch_bytes: int
+                       ) -> None:
+    """Count one tile-bitmask pass of the walk over ``x``'s elements at
+    k-block edge ``bk``, beside a scratch of ``scratch_bytes``:
+    ``bitmask_bytes``, ``bitmask_repeat_bytes`` where ``x`` is the same
+    tensor object at the same ``_version`` and edge as at an earlier pass
+    (a fresh tensor at a reused address, or one written in place since,
+    is new; an inference-mode tensor, which keeps no version, always is),
+    and the high mark ``walk_scratch_bytes``."""
+    nbytes = x.numel() * x.element_size()
+    trace.count("bitmask_bytes", nbytes)
+    trace.high("walk_scratch_bytes", scratch_bytes)
+    if x.is_inference():
+        return
+    key, version = id(x), x._version
+    seen = _passes.get(key)
+    if seen is not None and seen[0]() is x and seen[1] == version:
+        if bk in seen[2]:
+            trace.count("bitmask_repeat_bytes", nbytes)
+            return
+        seen[2].add(bk)
+        return
+
+    def forget(ref, key=key):
+        if _passes.get(key, (None,))[0] is ref:
+            del _passes[key]
+    _passes[key] = (weakref.ref(x, forget), version, {bk})
 
 
 def pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -338,6 +377,7 @@ def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows):
         m, K, bk, n, x.data_ptr() % 16 == 0 and kdim % 4 == 0,
         y.data_ptr() % 16 == 0 and n % 4 == 0)
     size = words + x_tiles + kdim * y_cols
+    count_bitmask_pass(x, bk, 4 * size)
     work = (torch.empty(size, dtype=torch.float32, device=y.device)
             if size else None)
     fn = build.function("dispatch", "rt_dispatch",
@@ -385,6 +425,7 @@ def _block_matmul_mma(x, y, codes, block, out, skip, pad_rows):
     if out.numel() == 0:
         return out
     flags, partials = _scratch_sizes(shape, m, K * bk, J * bn)
+    count_bitmask_pass(x, bk, 4 * (flags + partials))
     work = (torch.empty(flags + partials, dtype=torch.float32,
                         device=y.device) if flags + partials else None)
     ptr = 0 if work is None else work.data_ptr()

@@ -14,7 +14,8 @@ count through it.
 in one launch with the stack on the grid's z axis: the serving wave's
 request inputs (``core.profiler.batched_block_counts``, port of the
 reference's fused reduction at ``src/repro/core/profiler.py:60``).  Its
-launches count apart, in ``batched_launches``.
+launches count apart, in ``batched_launches``.  Both routes add the bytes
+they count to ``repro_torch.trace``'s ``profile_bytes``, on any device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_tile_nnz as tile_nnz_plain  # noqa: F401
 
@@ -70,6 +72,7 @@ def tile_nnz(x: torch.Tensor, tile: Tuple[int, int] = (128, 128)
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (float32 or bfloat16) or raises.
     """
+    trace.count("profile_bytes", x.numel() * x.element_size())
     if not x.is_cuda:
         return tile_nnz_plain(x, tile)
     global launches
@@ -93,6 +96,7 @@ def tile_nnz_batched(x: torch.Tensor, tile: Tuple[int, int] = (128, 128)
     if x.dim() != 3:
         raise ValueError(f"tile_nnz_batched: expected a 3-D stack, got "
                          f"{x.dim()}-D")
+    trace.count("profile_bytes", x.numel() * x.element_size())
     if not x.is_cuda:
         return tile_nnz_plain(x, tile)
     global batched_launches
