@@ -31,6 +31,10 @@ row-CSR kernel accumulate in float32 and the result takes
 The planner bypasses (``codes``, ``dens_x``/``dens_y``, ``fmt``, ``ell``)
 keep the reference's meaning: the fused whole-model executor plans from
 propagated writeback profiles and shares one ELL view across kernels.
+``x_format`` is the executor's too: x's format for the float32 walk,
+held across inferences for a resident graph input
+(:func:`takes_x_format`, ``dispatch.build_x_format``), so that the walk
+skips its pass over x.
 
 Gradients: where grad mode is on and x or y requires a gradient, the
 ``dispatch`` route runs inside :class:`BlockMatmulFn` (a float32 forward
@@ -191,15 +195,33 @@ def _check_backward_block(block: Tuple[int, int, int]) -> None:
                          f"every edge in {_dispatch.BLOCK_EDGES})")
 
 
-def _block_path(x, y, codes, block, static, out, skip) -> torch.Tensor:
+def takes_x_format(x: torch.Tensor, y: torch.Tensor, strategy: str
+                   ) -> bool:
+    """Whether the block path of ``dynasparse_matmul(x, y,
+    strategy=strategy)`` walks x on the float32 ``dispatch`` route, where
+    a held ``x_format`` can serve it: ``dynamic`` (a static strategy runs
+    one ``gemm`` or ``spdmm`` launch), float32 operands on the card, no
+    gradient wanted, and x contiguous (a copy would be a new tensor at
+    every call)."""
+    return (strategy == "dynamic" and y.is_cuda
+            and x.dtype == y.dtype == torch.float32 and x.is_contiguous()
+            and not _needs_grad(x, y))
+
+
+def _block_path(x, y, codes, block, static, out, skip,
+                x_format=None) -> torch.Tensor:
     """The float32 product through the route the strategy and the operand
     type fix: a float32 static strategy runs one ``gemm`` or ``spdmm``
     launch, anything else (bf16 static grids included) the ``dispatch``
     walk of ``codes``, through :class:`BlockMatmulFn` when a gradient is
-    wanted."""
+    wanted.  ``x_format`` serves only the float32 walk; anywhere else it
+    raises."""
     m, n = x.shape[0], y.shape[1]
     if torch.bfloat16 in (x.dtype, y.dtype):
         static = None       # the bf16 dispatch walks the constant grid
+    if x_format is not None and (static is not None or _needs_grad(x, y)):
+        raise ValueError("dynasparse_matmul: x_format serves only the "
+                         "float32 walk without a gradient")
     if static is None and out is None and _needs_grad(x, y):
         if y.is_cuda:
             _check_backward_block(block)
@@ -215,7 +237,8 @@ def _block_path(x, y, codes, block, static, out, skip) -> torch.Tensor:
         return full[:m, :n]
     # the padded rows are needed only where csr_spmm shares ``out``
     full = _dispatch.block_matmul(x, y, codes, block, out=out, skip=skip,
-                                  pad_rows=out is not None)
+                                  pad_rows=out is not None,
+                                  x_format=x_format)
     return full[:m, :n]
 
 
@@ -239,6 +262,7 @@ def dynasparse_matmul(
     format_aware: bool = False,
     csr_rmax: int = 64,
     spans: Optional[trace.KernelSpans] = None,
+    x_format: Optional[_dispatch.WalkFormat] = None,
 ) -> DynasparseResult:
     """``x @ y`` with per-(partition pair) primitive dispatch + epilogue.
 
@@ -251,7 +275,9 @@ def dynasparse_matmul(
     runs when CSR wins AND every row fits ``csr_rmax`` (checked on the
     device).  ``spans`` names the block path, the epilogue and the
     writeback profile after the caller's IR kernel (``repro_torch.trace``);
-    without it they open no span.
+    without it they open no span.  ``x_format``: x's held format for the
+    float32 walk (``dispatch.build_x_format``, x unchanged since), where
+    :func:`takes_x_format` holds.
     """
     m, n = x.shape[0], y.shape[1]
     bm, bk, bn = block
@@ -283,7 +309,8 @@ def dynasparse_matmul(
         with trace.span(names.block_path):
             buf = torch.empty((I * bm, J * bn), dtype=torch.float32,
                               device=y.device)
-            out = _block_path(x, y, codes, block, None, buf, use_csr)
+            out = _block_path(x, y, codes, block, None, buf, use_csr,
+                              x_format)
             _csr.csr_spmm(ell.values, ell.cols, ell.row_counts,
                           y.contiguous(), out=buf, run=use_csr)
         executed_fmt = use_csr
@@ -291,7 +318,8 @@ def dynasparse_matmul(
         static = (None if strategy == "dynamic"
                   else analyzer.static_primitive(strategy, kernel_type))
         with trace.span(names.block_path):
-            out = _block_path(x, y, codes, block, static, None, None)
+            out = _block_path(x, y, codes, block, static, None, None,
+                              x_format)
         executed_fmt = torch.zeros((), dtype=torch.int32, device=y.device)
 
     with trace.span(names.epilogue):

@@ -56,12 +56,14 @@ from repro_torch.core import analyzer, formats, profiler, scheduler
 from repro_torch.core.compiler import CompiledModel
 from repro_torch.core.dynasparse import (DynasparseResult,
                                          attention_adjacency,
-                                         dynasparse_matmul, mask_ell)
+                                         dynasparse_matmul, mask_ell,
+                                         takes_x_format)
 from repro_torch.core.ir import Activation, AggOp, KernelIR, KernelType
 from repro_torch.core.perf_model import FPGACostModel
 from repro_torch.core.profiler import SparsityStats
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.distributed import sharding
+from repro_torch.kernels import dispatch as _dispatch
 
 # instructions the soft processor spends per K2P decision (Alg. 7 is a few
 # compares + buffer assignment); 500 MIPS MicroBlaze (Section VII).
@@ -454,11 +456,22 @@ class FusedModelExecutor:
     """Runs a whole ``CompiledModel`` as one walk with chained profiles.
 
     * graph inputs (adjacency, features, weights) are profiled ONCE per
-      (tensor identity, granularity) and cached across inferences;
+      (tensor identity, ``_version``, granularity) and cached across
+      inferences;
     * every intermediate is planned from its producer's writeback counts,
       pooled to the consumer's granularity by exact integer sums
       (``profiler.BlockProfile.pool_rows``), never re-profiled;
-    * kernels that read the same source tensor share one ELL conversion.
+    * kernels that read the same source tensor share one ELL conversion;
+    * in :meth:`run`, a graph input that a kernel's float32 walk reads as
+      its lhs keeps its walk format (``dispatch.WalkFormat``: x's tile
+      bitmask words and staged tiles) across inferences while it stays
+      the same tensor object at the same ``_version``: the first run that
+      reads it builds nothing (a one-shot input pins no A-sized buffer),
+      the next builds the format in its first walk over it, and every
+      later walk over it skips the format pass.  Another object, a
+      bumped version or an inference tensor (which keeps no version)
+      starts again; one entry per (name, k-block edge, device), dropped
+      with the executor.  A wave's walks (``run_batch``) hold none.
 
     ``trace_count`` counts the walk plans built: one per signature.
     ``collect_report=False`` skips the host bookkeeping, so no code grid
@@ -482,12 +495,18 @@ class FusedModelExecutor:
         self.csr_rmax = csr_rmax
         self.collect_report = collect_report
         self._programs: Dict[tuple, _WalkPlan] = {}
-        # (env name, granularity, device) -> (tensor ref, BlockProfile);
-        # the ref keeps the tensor alive so the identity check is sound
+        # (env name, granularity, device) -> (tensor ref, BlockProfile, its
+        # _version); the ref keeps the tensor alive so the identity check
+        # is sound
         self._input_profiles: Dict[tuple, tuple] = {}
         # (env name, device) -> (source tensor, its copy there): the shared
         # weights of a lane on another device than the caller's
         self._device_copies: Dict[tuple, tuple] = {}
+        # (env name, k-block edge, device) -> (tensor, its _version, the
+        # run that first read it, its WalkFormat or None); the runs are
+        # counted by _runs
+        self._walk_formats: Dict[tuple, tuple] = {}
+        self._runs = 0
         self.cache_hits = 0
         self.cache_misses = 0
         self.trace_count = 0
@@ -535,11 +554,13 @@ class FusedModelExecutor:
         return seen
 
     def _trace_kernels(self, plan: _WalkPlan, env: Dict[str, torch.Tensor],
-                       profiles: Dict[tuple, profiler.BlockProfile]) -> list:
+                       profiles: Dict[tuple, profiler.BlockProfile],
+                       hold_formats: bool = False) -> list:
         """Walk ``plan``'s kernels, each in its span, planning each from
         ``profiles`` (graph inputs) or the producer's chained writeback
         counts.  Mutates ``env`` and returns the per-kernel (codes, dens_x,
-        dens_y, out_density, fmt).
+        dens_y, out_density, fmt).  With ``hold_formats`` a graph input's
+        walk format is kept across runs (:meth:`_x_format`).
 
         ELL sharing: the first kernel that reads a source converts it; a
         later kernel reuses that view when it or any earlier reader wanted
@@ -552,7 +573,7 @@ class FusedModelExecutor:
         for k, (fx, fy), spans in zip(plan.kernels, plan.flows, plan.spans):
             with trace.span(spans.kernel):
                 res = self._trace_kernel(k, fx, fy, spans, env, profiles,
-                                         counts_env, ell_env)
+                                         counts_env, ell_env, hold_formats)
             n2 = k.scheme.n2
             env[k.out] = res.out
             counts_env[k.out] = profiler.BlockProfile(
@@ -565,7 +586,8 @@ class FusedModelExecutor:
                       env: Dict[str, torch.Tensor],
                       profiles: Dict[tuple, profiler.BlockProfile],
                       counts_env: Dict[str, profiler.BlockProfile],
-                      ell_env: Dict[tuple, tuple]) -> DynasparseResult:
+                      ell_env: Dict[tuple, tuple],
+                      hold_formats: bool = False) -> DynasparseResult:
         """One kernel of :meth:`_trace_kernels`: plan, share the ELL view,
         run."""
         x, y = env[fx.source], env[fy.source]
@@ -603,6 +625,10 @@ class FusedModelExecutor:
                 ell_env[ekey] = (want, full)
         residual = (env[k.epilogue_add]
                     if k.epilogue_add is not None else None)
+        x_format = None
+        if (hold_formats and fx.producer is None
+                and takes_x_format(x, y, self.strategy)):
+            x_format = self._x_format(fx.source, x, k.block_dims[1])
         return dynasparse_matmul(
             x, y, codes=codes, dens_x=dens_x, dens_y=dens_y,
             fmt=fmt, ell=ell, residual=residual,
@@ -614,7 +640,28 @@ class FusedModelExecutor:
             out_block=(k.scheme.n2, k.scheme.n2),
             block=k.block_dims,
             cost_model=self.model, format_aware=self.format_aware,
-            csr_rmax=self.csr_rmax, spans=spans)
+            csr_rmax=self.csr_rmax, spans=spans, x_format=x_format)
+
+    def _x_format(self, name: str, x: torch.Tensor, bk: int
+                  ) -> Optional[_dispatch.WalkFormat]:
+        """The walk format of graph input ``name`` (``x``) at k-block edge
+        ``bk`` for this run's walk: None where x is new under this key (a
+        first sight, remembered) or an inference tensor (forgotten); built
+        in the first walk of a later run that reads x unchanged; then kept
+        and handed to every later walk."""
+        key = (name, bk, x.device)
+        if x.is_inference():
+            self._walk_formats.pop(key, None)
+            return None
+        held = self._walk_formats.get(key)
+        if held is None or held[0] is not x or held[1] != x._version:
+            self._walk_formats[key] = (x, x._version, self._runs, None)
+            return None
+        x_format = held[3]
+        if x_format is None and held[2] < self._runs:
+            x_format = _dispatch.build_x_format(x, -(-x.shape[1] // bk), bk)
+            self._walk_formats[key] = held[:3] + (x_format,)
+        return x_format
 
     def _program(self, compiled: CompiledModel, key: tuple) -> _WalkPlan:
         """The walk plan cached under ``key``: a single inference's
@@ -633,14 +680,18 @@ class FusedModelExecutor:
         return plan
 
     def _input_counts(self, needed, tensors) -> Tuple[torch.Tensor, ...]:
-        """The graph-input profiles, measured once per tensor identity."""
+        """The graph-input profiles, measured once per tensor identity and
+        ``_version`` (an inference tensor keeps none: its identity)."""
         out = []
         for name, blk in needed:
             arr = tensors[name]
             key = (name, blk, arr.device)
+            version = None if arr.is_inference() else arr._version
             cached = self._input_profiles.get(key)
-            if cached is None or cached[0] is not arr:
-                cached = (arr, profiler.BlockProfile.measure(arr, blk))
+            if (cached is None or cached[0] is not arr
+                    or cached[2] != version):
+                cached = (arr, profiler.BlockProfile.measure(arr, blk),
+                          version)
                 self._input_profiles[key] = cached
             out.append(cached[1].counts)
         return tuple(out)
@@ -653,6 +704,7 @@ class FusedModelExecutor:
         bookkeeping plus ``fused_wall_seconds``."""
         t_enter = time.perf_counter_ns()
         trace.count("runs")
+        self._runs += 1
         with trace.span(trace.RUN):
             n_cc = self.n_cc or compiled.partition.n_cc
             with trace.span(trace.RUN_SIGNATURE):
@@ -666,7 +718,8 @@ class FusedModelExecutor:
                 (name, blk): profiler.BlockProfile(
                     counts, tuple(env[name].shape), blk)
                 for (name, blk), counts in zip(plan.needed, in_counts)}
-            sides = self._trace_kernels(plan, env, profiles)
+            sides = self._trace_kernels(plan, env, profiles,
+                                        hold_formats=True)
             final = plan.kernels[-1].out
             trace.count("run_host_ns", time.perf_counter_ns() - t_enter)
             with trace.span(trace.RUN_SYNC):

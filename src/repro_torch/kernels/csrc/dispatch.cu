@@ -38,7 +38,8 @@
 //       meet in L1 (the host picks the shape: kernels/dispatch.py
 //       fma_launch);
 //     - x's occupancy is one bitmask word per (16-row tile, k-block, 32
-//       slices), written by x_words_kernel in the same C call; a warp
+//       slices), written by x_words_kernel (rt_dispatch_x_format) just
+//       before the walk (rt_dispatch); a warp
 //       turns 32 units' codes and words into its list of steps at once
 //       (a scan over the lanes, the next window's loads in flight), so
 //       an empty slice costs no load, barrier or FMA;
@@ -49,9 +50,18 @@
 //     - x and y are not padded: rows and columns past them are
 //       zero-filled copies.  Rows that are not 16-byte aligned (A_mean's
 //       and H0's 3327 and 3703 floats) cost the walk far more than one
-//       extra pass, so the same C call stages them: x_words_kernel writes
-//       x's nonzero tiles to an aligned scratch (x is read there anyway),
-//       y_pad_kernel copies y to rows of a multiple of 4 floats.
+//       extra pass, so they are staged: x_words_kernel writes x's
+//       nonzero tiles to an aligned scratch (x is read there anyway),
+//       y_pad_kernel (in the walk's call) copies y to rows of a multiple
+//       of 4 floats;
+//     - x's bitmask words and staged tiles (its "format") depend on x
+//       alone, so they are written by their own entry point,
+//       rt_dispatch_x_format, and the walk takes them as arguments.  A
+//       caller that knows x is unchanged since an earlier format pass
+//       (the fused executor, for a resident graph input:
+//       kernels/dispatch.py build_x_format) keeps that format and
+//       launches only the walk; the pass reads all of x, an A-sized
+//       matrix more than once per inference otherwise.
 //   Rounding: the first version's, bit for bit, since its rounding
 //   decides the writeback counts the next kernel plans from.  For each
 //   output and each k-block in ascending k that is not SKIP, a fresh
@@ -781,44 +791,78 @@ int launch_mma_bm(int cta_m, int cta_n, const MmaArgs& a) {
 
 }  // namespace
 
-// float32 route.  x (m, kdim) and y (kdim, ny) row-major float32, not
-// padded (what lies past them reads as zeros; m <= I*bm, kdim <= K*bk,
-// ny <= J*bn); codes (I, J, K) int32; out (out_rows, J*bn) float32 with
-// m <= out_rows <= I*bm, 16-byte aligned, every element written unless
-// *skip.  scratch, 16-byte aligned, as kernels/dispatch.py fma_scratch
-// sizes it: x's tile bitmasks (ceil(m/16) * K * ceil(bk/512) uint32,
-// rounded up to 4); then, when x's rows are not 16-byte aligned, room for
-// its tiles (ceil(m/16) * K*bk * 16 floats); then, when y's are not, for
-// y padded to rows of a multiple of 4 floats.  bm, bn in {16, 32, 64,
-// 128, 256}, bk % 16 == 0.  A warp owns warp_rows (8 or 16) x 16 outputs,
-// a CTA row_warps x col_warps warps (at most 8), as fma_launch picks
-// them.
+// x's format for the float32 walk: x (m, kdim) row-major float32, not
+// padded (what lies past it reads as zeros, kdim <= K*bk), bk % 16 == 0.
+// occx, 16-byte aligned: ceil(m/16) * K * ceil(bk/512) uint32 of bitmask
+// words; xt, 16-byte aligned: room for x's tiles (ceil(m/16) * K*bk * 16
+// floats) when x's rows are not 16-byte aligned, else nullptr (as
+// kernels/dispatch.py fma_scratch sizes them).  When skip is given and
+// *skip != 0 nothing is written: only a format used by the one walk of
+// the same flag may take it, never one kept for later walks.
+extern "C" int rt_dispatch_x_format(const float* x, int m, int kdim, int K,
+                                    int bk, void* occx, float* xt,
+                                    const int* skip, void* stream) {
+  if (bk <= 0 || bk % rt::T || K < 0 || m < 0 || kdim < 0 ||
+      kdim > (long)K * bk)
+    return (int)cudaErrorInvalidValue;
+  const int W = (bk / rt::T + 31) / 32;
+  const long words = (m + rt::T - 1) / rt::T * (long)K * W;
+  if (words == 0) return 0;
+  const bool x_in_place = (uintptr_t)x % 16 == 0 && kdim % 4 == 0;
+  if (words > 0x7fffffffL || occx == nullptr || ((uintptr_t)occx & 15) ||
+      (x_in_place != (xt == nullptr)) || ((uintptr_t)xt & 15))
+    return (int)cudaErrorInvalidValue;
+  FmaArgs a{};
+  a.x = x;
+  a.occx = reinterpret_cast<uint32_t*>(occx);
+  a.xt = xt;
+  a.skip = skip;
+  a.m = m;
+  a.kdim = kdim;
+  a.K = K;
+  a.bk = bk;
+  a.W = W;
+  x_words_kernel<<<(unsigned)((words + 7) / 8), 256, 0,
+                   (cudaStream_t)stream>>>(a, (int)words);
+  return (int)cudaGetLastError();
+}
+
+// float32 route, the walk.  x (m, kdim) and y (kdim, ny) row-major
+// float32, not padded (what lies past them reads as zeros; m <= I*bm,
+// kdim <= K*bk, ny <= J*bn); codes (I, J, K) int32; out (out_rows, J*bn)
+// float32 with m <= out_rows <= I*bm, 16-byte aligned, every element
+// written unless *skip.  occx and xt: x's format at (K, bk), written by
+// rt_dispatch_x_format over this x (before, on the same stream, or
+// earlier and x unchanged since); ypad, 16-byte aligned: room for y
+// padded to rows of a multiple of 4 floats when y's rows are not 16-byte
+// aligned (and kdim > 0), else nullptr.  bm, bn in {16, 32, 64, 128, 256}, bk % 16 ==
+// 0.  A warp owns warp_rows (8 or 16) x 16 outputs, a CTA row_warps x
+// col_warps warps (at most 8), as fma_launch picks them.
 extern "C" int rt_dispatch(const float* x, int m, int kdim, const float* y,
                            int ny, const int* codes, float* out,
-                           int out_rows, void* scratch, const int* skip,
-                           int I, int J, int K, int bm, int bk, int bn,
-                           int warp_rows, int row_warps, int col_warps,
-                           void* stream) {
+                           int out_rows, const void* occx, const float* xt,
+                           float* ypad, const int* skip, int I, int J, int K,
+                           int bm, int bk, int bn, int warp_rows,
+                           int row_warps, int col_warps, void* stream) {
   const int W = (bk / rt::T + 31) / 32;
   if (!block_edge(bm) || !block_edge(bn) || bk <= 0 || bk % rt::T ||
       I < 0 || J < 0 || K < 0 || m < 0 || m > (long)I * bm ||
       kdim > (long)K * bk || ny > (long)J * bn || out_rows < m ||
       out_rows > (long)I * bm || (warp_rows != 8 && warp_rows != 16) ||
       row_warps < 1 || col_warps < 1 || row_warps * col_warps > 8 ||
-      out == nullptr || ((uintptr_t)out & 15) || ((uintptr_t)scratch & 15))
+      out == nullptr || ((uintptr_t)out & 15) || ((uintptr_t)occx & 15) ||
+      ((uintptr_t)xt & 15) || ((uintptr_t)ypad & 15))
     return (int)cudaErrorInvalidValue;
   if (out_rows == 0 || J == 0) return 0;
-  const long mtiles = (m + rt::T - 1) / rt::T;
-  const long words = mtiles * K * W;
+  const long words = (m + rt::T - 1) / rt::T * (long)K * W;
   const bool x_in_place = (uintptr_t)x % 16 == 0 && kdim % 4 == 0;
   const bool y_in_place = (uintptr_t)y % 16 == 0 && ny % 4 == 0;
-  const int ldy = y_in_place ? ny : (ny + 3) / 4 * 4;
-  float* tail = reinterpret_cast<float*>(scratch) + (words + 3) / 4 * 4;
-  float* xt = x_in_place || words == 0 ? nullptr : tail;
-  float* ypad = y_in_place ? nullptr
-                           : tail + (x_in_place ? 0 : mtiles * K * bk * 16);
-  if (words > 0x7fffffffL || (scratch == nullptr && (words > 0 || ypad)))
+  if (words > 0x7fffffffL || (words > 0 && occx == nullptr) ||
+      (words > 0 && x_in_place != (xt == nullptr)) ||
+      (y_in_place && ypad != nullptr) ||
+      (!y_in_place && kdim > 0 && ypad == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int ldy = y_in_place ? ny : (ny + 3) / 4 * 4;
   cudaStream_t s = (cudaStream_t)stream;
   if (ypad != nullptr && kdim > 0) {
     const long total = (long)kdim * ldy / 4;
@@ -827,14 +871,11 @@ extern "C" int rt_dispatch(const float* x, int m, int kdim, const float* y,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  FmaArgs a{x, ypad ? ypad : y, codes, reinterpret_cast<uint32_t*>(scratch),
-            xt, out, skip, m, kdim, ny, ldy, out_rows,
-            I, J, K, bm, bk, bn, W, row_warps, col_warps};
-  if (words > 0) {
-    x_words_kernel<<<(unsigned)((words + 7) / 8), 256, 0, s>>>(a, (int)words);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  FmaArgs a{x, ypad ? ypad : y, codes,
+            const_cast<uint32_t*>(static_cast<const uint32_t*>(occx)),
+            const_cast<float*>(words > 0 ? xt : nullptr), out, skip, m,
+            kdim, ny, ldy, out_rows, I, J, K, bm, bk, bn, W, row_warps,
+            col_warps};
   return warp_rows == 8 ? launch_fma<8>(a, s) : launch_fma<16>(a, s);
 }
 

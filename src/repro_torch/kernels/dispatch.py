@@ -10,9 +10,11 @@ float32.  Two routes, by the operands' type:
 
 * float32 (the GNN path): the FP32 FMA units; each warp walks its own
   16 (or 8) rows x 16 columns through its block's codes, shaped from the
-  output on the host (:func:`fma_launch`); x's tile bitmasks are built in
-  the same C call and the operands read in place; each output rounds as
-  in the first version, bit for bit (the writeback counts depend on it);
+  output on the host (:func:`fma_launch`); each output rounds as in the
+  first version, bit for bit (the writeback counts depend on it).  Two C
+  calls: a format pass over x (its 16 x 16 tile bitmask words and, for
+  rows that are not 16-byte aligned, its nonzero tiles staged aligned),
+  then the walk, which reads that format and y in place;
 * bfloat16 (the LM's FFN): tensor cores (``mma.sync``), with the CTA tile
   and a split of the k-blocks chosen on the host from the rows that are
   really there (:func:`mma_launch`), partials added in a fixed order.
@@ -27,9 +29,19 @@ counted here.
 :func:`block_matmul_plain` is the plain PyTorch version with the
 reference's per-step accumulation (``acc + step``).
 
+x's format is a function of x alone.  A caller that knows x has not
+changed since an earlier pass may build it once (:func:`build_x_format`,
+a :class:`WalkFormat`) and hand it to later walks over x
+(``block_matmul(..., x_format=)``), which then launch only the walk.
+The fused executor does so for a resident graph input
+(``core/runtime.FusedModelExecutor``); every other caller passes none.
+
 Both walk routes count their tile-bitmask (or flag) pass over x in
 ``repro_torch.trace`` (:func:`count_bitmask_pass`): the bytes it reads,
-the part an earlier pass already read unchanged, and the scratch.
+the part an earlier pass already read unchanged, and the scratch; a
+walk over a held format counts ``walk_format_hits`` and
+``bitmask_reused_bytes`` (x's bytes) instead, and a build
+``walk_format_builds``.
 """
 from __future__ import annotations
 
@@ -213,6 +225,106 @@ def count_bitmask_pass(x: torch.Tensor, bk: int, scratch_bytes: int
     _passes[key] = (weakref.ref(x, forget), version, {bk})
 
 
+@dataclasses.dataclass(eq=False)
+class WalkFormat:
+    """x's format for the float32 walk, kept across walks: one allocation
+    (``buf``: the bitmask words, rounded up to 16 bytes, then the staged
+    tiles when x's rows are not 16-byte aligned) and what it was built
+    for.  ``walks`` counts the walks it served; the first is the one its
+    build's pass was for, each later one a reuse."""
+    buf: Optional[torch.Tensor]
+    words: int                  # 4-byte words of the bitmask, rounded
+    x_tiles: int                # floats of the staged tiles, or 0
+    m: int
+    kdim: int
+    K: int
+    bk: int
+    device: torch.device
+    data_ptr: int
+    walks: int = 0
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * (self.words + self.x_tiles)
+
+    def pointers(self) -> Tuple[Optional[int], Optional[int]]:
+        """(occx, xt) as the walk's C call takes them."""
+        if self.buf is None:
+            return None, None
+        base = self.buf.data_ptr()
+        return base, base + 4 * self.words if self.x_tiles else None
+
+    def check(self, x: torch.Tensor, K: int, bk: int) -> None:
+        """Raise unless this format was built for ``x`` (its shape, device
+        and data) at ``K`` k-blocks of edge ``bk``; nothing falls back."""
+        got = (x.shape[0], x.shape[1], K, bk, x.device, x.data_ptr())
+        want = (self.m, self.kdim, self.K, self.bk, self.device,
+                self.data_ptr)
+        if got != want:
+            raise ValueError(f"block_matmul: x_format was built for (m, "
+                             f"kdim, K, bk, device, data_ptr) {want}, not "
+                             f"{got}")
+
+
+def build_x_format(x: torch.Tensor, K: int, bk: int) -> WalkFormat:
+    """x's format for the float32 walk at ``K`` k-blocks of edge ``bk``,
+    built by one pass over x (``rt_dispatch_x_format``, which reads no
+    skip flag: the format is kept for later walks).  x: contiguous
+    float32 on the card, not an inference tensor; the caller keeps it
+    alive and unchanged as long as it hands the format to a walk.
+    Counts ``walk_format_builds`` and the pass (:func:`count_bitmask_pass`)."""
+    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("build_x_format: x must be contiguous float32 on "
+                         "the card")
+    if x.is_inference():
+        raise ValueError("build_x_format: an inference tensor keeps no "
+                         "version, so a kept format could go stale")
+    if bk % TILE or bk <= 0 or x.shape[1] > K * bk:
+        raise ValueError(f"build_x_format: {tuple(x.shape)} does not fit "
+                         f"K = {K} k-blocks of edge {bk}")
+    m, kdim = x.shape
+    words, x_tiles, _ = fma_scratch(
+        m, K, bk, 0, x.data_ptr() % 16 == 0 and kdim % 4 == 0, True)
+    buf = (torch.empty(words + x_tiles, dtype=torch.float32, device=x.device)
+           if words + x_tiles else None)
+    fmt = WalkFormat(buf, words, x_tiles, m, kdim, K, bk, x.device,
+                     x.data_ptr())
+    count_bitmask_pass(x, bk, fmt.nbytes)
+    trace.count("walk_format_builds")
+    _x_format_pass(x, K, bk, *fmt.pointers(), None)
+    return fmt
+
+
+def _x_format_pass(x, K, bk, occx, xt, skip) -> None:
+    """``rt_dispatch_x_format``: x's bitmask words (and staged tiles) at
+    ``occx`` (``xt``); with ``skip``, nothing where the flag is set."""
+    fn = build.function("dispatch", "rt_dispatch_x_format",
+                        [ctypes.c_void_p] + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p] * 4)
+    build.check(fn(x.data_ptr(), x.shape[0], x.shape[1], K, bk, occx, xt,
+                   None if skip is None else skip.data_ptr(),
+                   build.stream(x)), "dispatch")
+
+
+def count_walk(x: torch.Tensor, bk: int, x_format: Optional[WalkFormat],
+               scratch_bytes: int) -> None:
+    """Count one float32 walk over ``x`` beside a scratch of
+    ``scratch_bytes`` (a held format counts as the walk's scratch): its
+    own format pass (:func:`count_bitmask_pass`) where no ``x_format``
+    serves it; else the scratch's high mark and, for each walk after the
+    one its build's pass served, ``walk_format_hits`` and x's bytes as
+    ``bitmask_reused_bytes``.  So ``bitmask_bytes`` and
+    ``bitmask_reused_bytes`` add up to what a pass in every walk reads."""
+    if x_format is None:
+        count_bitmask_pass(x, bk, scratch_bytes)
+        return
+    trace.high("walk_scratch_bytes", scratch_bytes)
+    if x_format.walks:
+        trace.count("walk_format_hits")
+        trace.count("bitmask_reused_bytes", x.numel() * x.element_size())
+    x_format.walks += 1
+
+
 def pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """Zero-pad ``x`` up to a multiple of ``rows`` x ``cols``."""
     m, n = x.shape
@@ -289,7 +401,8 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
                  block: Tuple[int, int, int], *,
                  out: Optional[torch.Tensor] = None,
                  skip: Optional[torch.Tensor] = None,
-                 pad_rows: bool = True) -> torch.Tensor:
+                 pad_rows: bool = True,
+                 x_format: Optional[WalkFormat] = None) -> torch.Tensor:
     """``x @ y`` dispatched by the (I, J, K) int32 code grid at
     ``block = (bm, bk, bn)``; returns the padded ``(I*bm, J*bn)`` float32
     product (written into ``out`` when given), or with ``pad_rows=False``
@@ -299,7 +412,10 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
 
     On CUDA: float32 (FMA route) or bfloat16 (tensor-core route) operands
     of one type, ``bm`` and ``bn`` in ``BLOCK_EDGES`` and ``bk`` a multiple
-    of 16; anything else raises.
+    of 16; anything else raises.  ``x_format`` (float32 only): x's format
+    from :func:`build_x_format`, x unchanged since; the walk then skips
+    its format pass, and a format built for another x, K or bk raises.
+    The plain version (on the CPU) needs no format and ignores it.
     """
     if not y.is_cuda:
         return block_matmul_plain(x, y, codes, block, out=out, skip=skip,
@@ -316,8 +432,11 @@ def block_matmul(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
     if skip is not None:
         build.require("block_matmul skip", skip, torch.int32)
     if y.dtype == torch.bfloat16:
+        if x_format is not None:
+            raise ValueError("block_matmul: x_format is the float32 walk's")
         return _block_matmul_mma(x, y, codes, block, out, skip, pad_rows)
-    return _block_matmul_fma(x, y, codes, block, out, skip, pad_rows)
+    return _block_matmul_fma(x, y, codes, block, out, skip, pad_rows,
+                             x_format)
 
 
 def block_matmul_nn(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
@@ -347,14 +466,16 @@ def block_matmul_nn(x: torch.Tensor, y: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows):
+def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows,
+                      x_format=None):
     """The float32 route: x and y are not padded (the kernel reads what
-    lies past them as zeros); one C call builds x's tile bitmasks and
-    walks the grid, its scratch one allocation.  Operands whose rows are
-    not 16-byte aligned are staged once inside that call (x's nonzero
-    tiles, y padded), since unaligned rows cost the walk far more.  Only
-    x's m rows are computed and stored unless ``pad_rows`` (or a caller's
-    ``out``) asks for the padded grid."""
+    lies past them as zeros).  x's format pass, then the walk, their
+    scratch one allocation; or, over a held ``x_format``, only the walk,
+    with y's pad (if any) its scratch.  Operands whose rows are not
+    16-byte aligned are staged (x's nonzero tiles by the format pass, y
+    padded by the walk's call), since unaligned rows cost the walk far
+    more.  Only x's m rows are computed and stored unless ``pad_rows`` (or
+    a caller's ``out``) asks for the padded grid."""
     global launches
     bm, bk, bn = block
     I, J, K = codes.shape
@@ -369,6 +490,8 @@ def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows):
     for name, t in (("x", x), ("y", y), ("out", out)):
         build.require(f"block_matmul {name}", t, torch.float32)
     build.require_aligned("block_matmul out", out)
+    if x_format is not None:
+        x_format.check(x, K, bk)
     shape = fma_launch(out_rows, J, block, build.sm_count(y.device))
     if shape is None:
         return out
@@ -376,20 +499,32 @@ def _block_matmul_fma(x, y, codes, block, out, skip, pad_rows):
     words, x_tiles, y_cols = fma_scratch(
         m, K, bk, n, x.data_ptr() % 16 == 0 and kdim % 4 == 0,
         y.data_ptr() % 16 == 0 and n % 4 == 0)
-    size = words + x_tiles + kdim * y_cols
-    count_bitmask_pass(x, bk, 4 * size)
-    work = (torch.empty(size, dtype=torch.float32, device=y.device)
-            if size else None)
+    pad = kdim * y_cols
+    if x_format is None:
+        size = words + x_tiles + pad
+        count_walk(x, bk, None, 4 * size)
+        work = (torch.empty(size, dtype=torch.float32, device=y.device)
+                if size else None)
+        base = 0 if work is None else work.data_ptr()
+        occx = base if words else None
+        xt = base + 4 * words if x_tiles else None
+        ypad = base + 4 * (words + x_tiles) if pad else None
+        _x_format_pass(x, K, bk, occx, xt, skip)
+    else:
+        count_walk(x, bk, x_format, x_format.nbytes + 4 * pad)
+        work = (torch.empty(pad, dtype=torch.float32, device=y.device)
+                if pad else None)
+        occx, xt = x_format.pointers()
+        ypad = None if work is None else work.data_ptr()
     fn = build.function("dispatch", "rt_dispatch",
                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_int]
                         + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p])
     build.check(fn(x.data_ptr(), m, kdim, y.data_ptr(), n,
-                   codes.data_ptr(), out.data_ptr(), out_rows,
-                   None if work is None else work.data_ptr(),
-                   None if skip is None else skip.data_ptr(),
+                   codes.data_ptr(), out.data_ptr(), out_rows, occx, xt,
+                   ypad, None if skip is None else skip.data_ptr(),
                    I, J, K, bm, bk, bn, shape.warp_rows, shape.row_warps,
                    shape.col_warps, build.stream(y)), "dispatch")
     launches += 1

@@ -17,8 +17,9 @@ Span names (``repro_torch.`` then):
 * ``<kernel>`` -- one IR kernel of the walk (``run``'s, a wave's slot's,
   or ``DynasparseEngine``'s), with the children of :class:`KernelSpans`:
   ``.plan`` (the code grid and format), ``.format`` (the ELL
-  conversion), ``.block_path`` (the one C call: bitmask, staging, walk),
-  ``.epilogue`` and ``.writeback`` (the result's block counts);
+  conversion), ``.block_path`` (the format pass, where no held format
+  serves, and the walk), ``.epilogue`` and ``.writeback`` (the result's
+  block counts);
 * ``wave.launch`` and ``wave.finish`` -- ``launch_batch`` and
   ``finish_batch`` of a served wave.
 
@@ -32,7 +33,12 @@ kernels' launch counts included (``launch.<kernel>``), and :func:`reset`
   that the ``dispatch`` walk's tile-bitmask pass reads, and the part
   over an operand that an earlier pass already read unchanged
   (``kernels.dispatch.count_bitmask_pass``);
-* ``walk_scratch_bytes`` (high) -- the walk's largest scratch allocation;
+* ``walk_format_builds`` / ``walk_format_hits`` -- float32 walk formats
+  built to be held (``kernels.dispatch.build_x_format``), and walks that
+  reused a held one without a pass of their own; ``bitmask_reused_bytes``
+  -- the bytes of x those walks did not read again;
+* ``walk_scratch_bytes`` (high) -- the walk's largest scratch allocation
+  (a held format counts as the scratch of the walks it serves);
 * ``profile_bytes`` -- bytes of every operand ``tile_nnz`` counts;
 * ``host_syncs`` -- the program's own host waits on the device;
 * ``run_host_ns`` -- host time of ``run`` up to its closing wait.

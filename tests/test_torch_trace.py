@@ -252,11 +252,16 @@ def test_card_bitmask_bytes_and_no_span_on_the_device(cuda):
     kernels = b.compiled.graph.topo_order()
     lhs = [traced[runtime._agg_lhs_name(k) if k.lhs == "A" else k.lhs]
            for k in kernels]
-    # each float32 walk passes once over its whole lhs; A_mean and the
-    # features are the objects of the run before, the rest are fresh
+    # each float32 walk passes once over its whole lhs but where a held
+    # format serves it: A_mean and the features are the objects of the run
+    # before, so this run builds their formats (repeated passes) and the
+    # second Aggregate reuses A_mean's; the rest are fresh
+    reused = c["bitmask_reused_bytes"]
     assert c["launch.dispatch"] == len(kernels)
-    assert c["bitmask_bytes"] == sum(x.numel() * 4 for x in lhs)
-    assert c["bitmask_repeat_bytes"] == sum(
+    assert c["walk_format_builds"] == 2 and c["walk_format_hits"] == 1
+    assert reused == b.tensors["A_mean"].numel() * 4
+    assert c["bitmask_bytes"] + reused == sum(x.numel() * 4 for x in lhs)
+    assert c["bitmask_repeat_bytes"] + reused == sum(
         x.numel() * 4 for x in lhs
         if x is b.tensors["A_mean"] or x is b.tensors["H0"])
     assert c["walk_scratch_bytes"] > 0
