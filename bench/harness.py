@@ -1,19 +1,21 @@
 """One run of one cell: set-up, the measured window, the check, the line.
 
-The program under test is ``repro_torch``: full-graph inference through
-``FusedModelExecutor(strategy=..., collect_report=False).run(compiled,
-tensors)``.  Everything a cell needs is found by name: the workload
-(``workloads/<cell>.json``: the pair and the limits), its configuration
-(``configs/<config>.json``: the model, the graph, the program's
-settings), its traffic mix (``traffic/<mix>.json``: parameters only), the
-mix's kind (``traffic/kinds/<kind>.py``: the inputs of each step), the
-loop that offers it (``traffic/loops/<loop>.py``: the window), the
-model's reference (``reference/models/<model>.py``) and each metric's
-reader (``metrics/<metric>.py``); an unknown name raises.
+The program under test is ``repro_torch``, reached through the program
+family that the cell's configuration names (``family``:
+``programs/<family>.py``, whose ``Program`` builds the resident inputs and
+the traffic's ``inputs``, compiles and holds the program, runs one step
+(``infer``), frees it, and gives the plain reference's output and the
+needed work of each step).  Everything a cell needs is found by name: the
+workload (``workloads/<cell>.json``: the pair and the limits), its
+configuration (``configs/<config>.json``: the family, the model, the
+program's settings), its traffic mix (``traffic/<mix>.json``: parameters
+only), the mix's kind (``traffic/kinds/<kind>.py``: the inputs of each
+step), the loop that offers it (``traffic/loops/<loop>.py``: the window)
+and each metric's reader (``metrics/<metric>.py``); an unknown name
+raises.
 
-Set-up (``setup_s``): CUDA, the program's kernels, the graph (the
-configuration's, from its ``graph_seed``: a resident graph is one
-dataset) built dense on the card, the traffic's inputs (from the run's
+Set-up (``setup_s``): CUDA, the program's kernels, the family's resident
+inputs and the traffic's inputs (from the configuration and the run's
 seed, on the card), the compile, and a warm-up over the cell's own
 shapes.  The loop then measures for ``seconds``.  After the window the
 peak memory is read, the program is freed, and the reference is worked
@@ -35,7 +37,7 @@ import torch
 
 from bench import plugins
 from bench import trace as tracing
-from bench.reference import check, gnn, work
+from bench.reference import check, work
 from bench.traffic import generator
 
 BENCH = plugins.BENCH
@@ -85,69 +87,42 @@ def reader(name: str):
 
 
 class Cell:
-    """One run's resident graph, its traffic's inputs (``inputs``, of the
-    mix's kind) and the program's objects that the window drives."""
+    """One run's program (``program``, of the family its configuration
+    names), its traffic's inputs (``inputs``) and the loop that offers
+    them."""
 
     def __init__(self, spec: dict, seed: int, device: torch.device):
         cfg, traffic = spec["config"], spec["traffic"]
         self.cfg, self.traffic = cfg, traffic
         self.seed, self.device = seed, device
-        self.model_name = cfg["model"]
-        self.model = gnn.model(cfg["model"])
         self.loop = plugins.load("traffic/loops", traffic["loop"])
-        kind = plugins.load("traffic/kinds", traffic["kind"])
-        n = cfg["n_vertices"]
-        self.dims = [cfg["f_in"]] + [cfg["hidden"]] * (cfg["n_layers"] - 1) \
-            + [cfg["n_classes"]]
-        rows, cols = generator.edge_list(n, cfg["n_edges"],
-                                         cfg["graph_seed"],
-                                         **cfg["generator"])
-        self.nnz_adj = int(rows.shape[0])
-        self.adj = generator.dense_adjacency(
-            rows, cols, self.model.normalize(rows, cols, n), n, device)
-        self.inputs = kind.Inputs(self)
-        self._program()
-
-    def _program(self) -> None:
-        from repro_torch.core import compiler, runtime
-        from repro_torch.models import gnn as program_gnn
-        cfg, prog = self.cfg, self.cfg["program"]
-        spec = program_gnn.make_model_spec(self.model_name, cfg["f_in"],
-                                           cfg["hidden"], cfg["n_classes"])
-        meta = compiler.GraphMeta(cfg["name"], cfg["n_vertices"],
-                                  cfg["n_edges"], cfg["f_in"])
-        self.compiled = compiler.compile_model(
-            spec, meta, n_cc=prog["n_cc"], align=prog["align"],
-            on_chip_bytes=prog["on_chip_bytes"])
-        self.executor = runtime.FusedModelExecutor(
-            strategy=prog["strategy"], collect_report=False)
-        self.adj_name = prog["inputs"]["adjacency"]
-        self.final = self.compiled.graph.kernels[-1].out
+        self.program = plugins.load("programs", cfg["family"]).Program(
+            cfg, traffic, seed, device)
+        self.inputs = self.program.inputs
 
     def sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def infer(self, s: int) -> torch.Tensor:
-        """One inference of the program at step ``s``; returns the
-        logits."""
-        tensors = {self.adj_name: self.adj,
-                   **self.inputs.program_tensors(s)}
-        env, _ = self.executor.run(self.compiled, tensors)
-        return env[self.final]
+        """One step of the program at step ``s``; returns the output
+        that is checked."""
+        return self.program.infer(s)
 
     def free_program(self) -> None:
         """Drop the program's objects and state; the inputs stay."""
-        self.executor = self.compiled = None
+        self.program.free_program()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def reference(self, s: int, precision: str = "float32"
-                  ) -> List[torch.Tensor]:
-        """The plain reference's layer outputs at step ``s``."""
-        x, weights = self.inputs.reference_inputs(s)
-        return gnn.forward(self.model_name, self.adj, x, weights,
-                           precision=precision)
+    def reference(self, s: int, precision: str = "float32") -> torch.Tensor:
+        """The plain reference's output at step ``s``."""
+        return self.program.reference(s, precision)
+
+
+def device_peaks(device: torch.device, name: str) -> Optional[dict]:
+    """The published peaks of the card named ``name``; None off a card."""
+    return work.peaks(name) if device.type == "cuda" else None
 
 
 def power_limit() -> Optional[str]:
@@ -210,10 +185,9 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, *,
                   f"not whole: {prof['partial']}", file=sys.stderr)
     kept = win.pop("kept")
     c.free_program()
-    print(f"inputs: adjacency nonzeros {c.nnz_adj}, "
-          f"{c.inputs.describe()}", file=sys.stderr)
+    print(f"inputs: {c.program.describe()}", file=sys.stderr)
 
-    errs = {s: check.max_rel_err(kept.get(s), c.reference(s)[-1])
+    errs = {s: check.max_rel_err(kept.get(s), c.reference(s))
             for s in range(c.inputs.steps)}
     del kept
     ctx = {"setup_s": setup_s, "inferences": len(win["latencies_s"]),
@@ -221,9 +195,8 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, *,
            "device_name": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu"), **win}
     if traced:
-        ctx["work"] = step_work(c)
-        ctx["peaks"] = (work.peaks(ctx["device_name"])
-                        if device.type == "cuda" else None)
+        ctx["work"] = [c.program.work(s) for s in range(c.inputs.steps)]
+        ctx["peaks"] = device_peaks(device, ctx["device_name"])
     values = {}
     for m in metrics:
         v = reader(m["name"])(ctx)
@@ -244,17 +217,4 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, *,
         out["device"]["window_s"] = prof["window_s"]
         out["breakdown"] = prof["breakdown"]
     out["checks"] = {"max_rel_err": {"value": worst, "limit": limit}}
-    return out
-
-
-def step_work(c: Cell) -> List[dict]:
-    """The work each step's inference needs (``reference/work.py``)."""
-    adj_col = work.colnnz(c.adj)
-    out = []
-    for s in range(c.inputs.steps):
-        x, weights = c.inputs.reference_inputs(s)
-        hs = gnn.forward(c.model_name, c.adj, x, weights)
-        out.append(work.inference_work(c.model_name, c.adj, adj_col, x,
-                                       weights, hs))
-        del hs
     return out

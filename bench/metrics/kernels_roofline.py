@@ -1,7 +1,8 @@
 """``kernels_roofline`` (%, device trace): the least time the card could
 take for the work one inference needs (``reference/work.py``
-``bound_seconds``) over the device busy time per inference, both over the
-profiler window's inferences (one of each step of the traffic)."""
+``bound_seconds``, at the peak FLOP/s of the work's precision) over the
+device busy time per inference, both over the profiler window's
+inferences (one of each step of the traffic)."""
 from bench.reference import work as needed
 
 

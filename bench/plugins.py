@@ -1,6 +1,7 @@
 """Find a part of the benchmark by its name.
 
-A model's reference (``reference/models/<model>.py``), a kind of traffic
+A family of programs (``programs/<family>.py``), a model's reference
+(``reference/models/<model>.py``), a kind of traffic
 (``traffic/kinds/<kind>.py``), a loop that offers it
 (``traffic/loops/<loop>.py``) and a per-layer metric's reader
 (``metrics/<metric>.py``) are each a file of their own, loaded by path from

@@ -12,8 +12,11 @@ numbers read the same.
   normal features, ReLU'd intermediates), so no sum cancels.
 * Bytes: the feature matrix as handed (dense) read once, the adjacency's
   nonzero values, the weights, and the output written once, 4 bytes each.
+  Features that stay resident across inferences, as the adjacency does,
+  count their nonzero values alone (``x_resident``).
 * Bound: max(operations / peak FLOP/s, bytes / peak bytes/s), the
-  published peaks in ``peaks.json``.
+  published peaks in ``peaks.json``, the FLOP/s of the work's own
+  ``precision`` (``RATES``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import torch
 from .gnn import model, precision_of
 
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
+# the key of ``peaks.json`` that holds the FLOP/s of each precision
+RATES = {"float32": "fp32_flops", "bfloat16": "bf16_flops"}
 
 
 def peaks(device_name: str) -> dict:
@@ -35,6 +40,16 @@ def peaks(device_name: str) -> dict:
         if key in device_name:
             return row
     raise KeyError(f"no published peaks for {device_name!r} in {PEAKS}")
+
+
+def rate(work: Dict[str, object], peak: dict) -> float:
+    """The published FLOP/s of ``work``'s precision; an unknown precision
+    raises."""
+    precision = work["precision"]
+    if precision not in RATES:
+        raise LookupError(f"no published rate for precision {precision!r};"
+                          f" known: {sorted(RATES)}")
+    return peak[RATES[precision]]
 
 
 def colnnz(x: torch.Tensor, rows: int = 4096) -> torch.Tensor:
@@ -83,22 +98,25 @@ def aggregate_macs(adj_colnnz: torch.Tensor, adj: torch.Tensor,
 @torch.no_grad()
 def inference_work(name: str, adj: torch.Tensor, adj_colnnz: torch.Tensor,
                    x: torch.Tensor, weights: Dict[str, torch.Tensor],
-                   hs: List[torch.Tensor]) -> Dict[str, float]:
+                   hs: List[torch.Tensor], *, x_resident: bool = False
+                   ) -> Dict[str, float]:
     """``{"flops", "bytes"}`` one inference of model ``name`` needs on these
     inputs; the model counts its multiply-adds (``needed_macs``), ``hs``
     are the reference's layer outputs (``gnn.forward``) and
-    ``adj_colnnz`` is ``colnnz(adj)``."""
+    ``adj_colnnz`` is ``colnnz(adj)``; ``x_resident``: the features stay
+    resident, so only their nonzero values count."""
     with precision_of("float32", x.device):
         total = model(name).needed_macs(adj, adj_colnnz, x, weights, hs)
-    nbytes = 4 * (x.numel() + int(adj_colnnz.sum())
+    x_elems = int(colnnz(x).sum()) if x_resident else x.numel()
+    nbytes = 4 * (x_elems + int(adj_colnnz.sum())
                   + sum(w.numel() for w in weights.values())
                   + hs[-1].numel())
     return {"flops": 2.0 * total, "bytes": float(nbytes)}
 
 
-def bound_seconds(work: Dict[str, float], peak: dict) -> float:
-    """The least time the card could take: max(operations / float32 peak,
-    bytes / HBM peak)."""
-    return max(work["flops"] / peak["fp32_flops"],
+def bound_seconds(work: Dict[str, object], peak: dict) -> float:
+    """The least time the card could take: max(operations / the peak of
+    the work's precision, bytes / HBM peak)."""
+    return max(work["flops"] / rate(work, peak),
                work["bytes"] / peak["hbm_bytes_per_s"])
 

@@ -19,6 +19,9 @@ SMALL = {
     "gcn-nell.feature-refresh": {"n_vertices": 700, "n_edges": 3000,
                                  "f_in": 900, "feature_density": 0.01,
                                  "hidden": 32, "n_classes": 20},
+    "gcn-nell.model-refresh": {"n_vertices": 700, "n_edges": 3000,
+                               "f_in": 900, "feature_density": 0.01,
+                               "hidden": 32, "n_classes": 20},
 }
 
 

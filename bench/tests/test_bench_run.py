@@ -113,12 +113,14 @@ def test_a_short_traced_run_on_the_card(card):
 
 
 @pytest.mark.parametrize("key,value", [("kind", "model-refresh"),
+                                       ("kind", "no-such-kind"),
                                        ("loop", "open"), ("clients", 2),
                                        ("order", "shuffled")])
 def test_a_traffic_the_harness_does_not_know_is_refused(key, value,
                                                         monkeypatch):
-    """A mix of an unknown kind, loop, client count or order raises rather
-    than running as another mix."""
+    """A mix of an unknown kind, loop, client count or order, or of a kind
+    whose parameters it does not state (``model-refresh`` without
+    ``weight_sets``), raises rather than running as another mix."""
     cell = "sage-flickr.feature-refresh"
     real = harness.cell_spec
 

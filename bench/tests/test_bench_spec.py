@@ -74,13 +74,23 @@ def test_each_cell_resolves_to_its_files(cell):
     kind = plugins.load("traffic/kinds", traffic["kind"])
     assert callable(kind.Inputs)
     assert callable(plugins.load("traffic/loops", traffic["loop"]).window)
-    model = gnn.model(cfg["model"])
-    for part in ("normalize", "weight_shapes", "forward", "needed_macs"):
-        assert callable(getattr(model, part))
-    assert set(cfg["program"]["inputs"]) == {"adjacency", "features"}
+    assert callable(plugins.load("programs", cfg["family"]).Program)
     e2e = {m["name"] for m in harness.cell_metrics(cell["name"], False)}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert harness.cell_metrics(cell["name"], True)
+
+
+@pytest.mark.parametrize("cfg", [c for c in SPEC["configs"] if json.loads(
+    (harness.ROOT / c["file"]).read_text())["family"] == "gnn"],
+    ids=lambda c: c["name"])
+def test_each_gnn_configuration_names_its_parts(cfg):
+    """A configuration of the ``gnn`` family names a model with a plain
+    reference of every part, and the program's two graph inputs."""
+    data = json.loads((harness.ROOT / cfg["file"]).read_text())
+    model = gnn.model(data["model"])
+    for part in ("normalize", "weight_shapes", "forward", "needed_macs"):
+        assert callable(getattr(model, part))
+    assert set(data["program"]["inputs"]) == {"adjacency", "features"}
 
 
 @pytest.mark.parametrize("metric", SPEC["end_to_end"] + SPEC["per_layer"],
@@ -92,7 +102,7 @@ def test_each_metric_has_its_reader(metric):
 @pytest.mark.parametrize("folder,name", [
     ("traffic/kinds", "no-such-kind"), ("traffic/loops", "open"),
     ("reference/models", "gat"), ("metrics", "no_such_metric"),
-    ("traffic/kinds", "../generator")])
+    ("traffic/kinds", "../generator"), ("programs", "no-such-family")])
 def test_an_unknown_part_is_refused(folder, name):
     with pytest.raises(LookupError):
         plugins.load(folder, name)

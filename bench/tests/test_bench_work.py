@@ -77,7 +77,40 @@ def test_inference_work_adds_the_layers(model):
 
 
 def test_bound_takes_the_larger_side():
-    peak = {"fp32_flops": 1e12, "hbm_bytes_per_s": 1e11}
-    assert work.bound_seconds({"flops": 2e9, "bytes": 1e8}, peak) == 2e-3
-    assert work.bound_seconds({"flops": 1e6, "bytes": 5e8}, peak) == 5e-3
-    assert work.peaks("NVIDIA H100 80GB HBM3")["fp32_flops"] == 67e12
+    peak = {"fp32_flops": 1e12, "bf16_flops": 4e12, "hbm_bytes_per_s": 1e11}
+    f32 = {"flops": 2e9, "bytes": 1e8, "precision": "float32"}
+    assert work.bound_seconds(f32, peak) == 2e-3
+    assert work.bound_seconds({"flops": 1e6, "bytes": 5e8,
+                               "precision": "float32"}, peak) == 5e-3
+    # the same operations at the bf16 rate: a quarter of the time
+    assert work.bound_seconds({**f32, "precision": "bfloat16"},
+                              peak) == 1e-3
+    h100 = work.peaks("NVIDIA H100 80GB HBM3")
+    assert h100["fp32_flops"] == 67e12 and h100["bf16_flops"] == 989e12
+
+
+@pytest.mark.parametrize("bad", [{"flops": 1.0, "bytes": 1.0},
+                                 {"flops": 1.0, "bytes": 1.0,
+                                  "precision": "float8"}],
+                         ids=["no precision", "unknown precision"])
+def test_work_of_no_known_precision_is_refused(bad):
+    with pytest.raises(LookupError):
+        work.bound_seconds(bad, work.peaks("NVIDIA H100 80GB HBM3"))
+
+
+def test_resident_features_count_their_nonzeros():
+    """Features that stay resident are read by their nonzero values, as
+    the adjacency is; the operations do not change."""
+    g = torch.Generator().manual_seed(5)
+    n, dims = 20, [15, 8, 4]
+    adj = sparse(n, n, 0.2, g) + torch.eye(n)
+    x = sparse(n, dims[0], 0.1, g)
+    weights = {k: sparse(*s, 1.0, g, nonneg=False)
+               for k, s in gnn.weight_shapes("gcn", dims).items()}
+    hs = gnn.forward("gcn", adj, x, weights)
+    fresh = work.inference_work("gcn", adj, work.colnnz(adj), x, weights, hs)
+    kept = work.inference_work("gcn", adj, work.colnnz(adj), x, weights, hs,
+                               x_resident=True)
+    assert kept["flops"] == fresh["flops"]
+    assert fresh["bytes"] - kept["bytes"] == 4 * (x.numel()
+                                                  - int((x != 0).sum()))

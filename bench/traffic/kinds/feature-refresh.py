@@ -27,7 +27,13 @@ class Inputs:
     """The steps of one run: feature snapshot ``s`` with the resident
     weights."""
 
+    # the features change at every step: the needed work reads them whole
+    RESIDENT_FEATURES = False
+
     def __init__(self, cell):
+        """``cell``: the program (``programs/gnn.py``), whose
+        configuration, traffic, seed, device, model and layer widths the
+        inputs follow."""
         cfg, traffic = cell.cfg, cell.traffic
         if traffic["order"] not in ORDERS:
             raise ValueError(f"feature-refresh: unknown order "
